@@ -9,35 +9,12 @@ composite -> loss path with a known ground-truth SDF.
 
 from __future__ import annotations
 
-import dataclasses
-
 import numpy as np
-import torch
 
-from neus2_tpu_torch.engine.rays import Cameras
+from neus2_tpu_torch.data.dataset import NerfDataset
 
 SPHERE_CENTER = np.array([0.5, 0.5, 0.5], np.float32)
 SPHERE_RADIUS = 0.25
-
-
-@dataclasses.dataclass
-class SyntheticScene:
-    images: np.ndarray  # (N, H, W, 4) float32, premultiplied-alpha linear RGBA
-    poses: np.ndarray  # (N, 3, 4) camera-to-world
-    focal: np.ndarray  # (N, 2)
-    principal: np.ndarray  # (N, 2)
-    aabb_scale: int = 1
-
-    def to_device(self, device) -> tuple[torch.Tensor, Cameras]:
-        """(images (N, H, W, 4), Cameras) as tensors on ``device``."""
-        n, h, w, _ = self.images.shape
-        cams = Cameras(
-            poses=torch.as_tensor(self.poses, device=device),
-            focal=torch.as_tensor(self.focal, device=device),
-            principal=torch.as_tensor(self.principal, device=device),
-            resolution=(w, h),
-        )
-        return torch.as_tensor(self.images, device=device), cams
 
 
 def _look_at(eye: np.ndarray, target: np.ndarray, up: np.ndarray) -> np.ndarray:
@@ -72,7 +49,7 @@ def shade_sphere(normal: np.ndarray) -> np.ndarray:
 
 def make_sphere_dataset(n_views: int = 16, resolution: int = 64,
                         cam_distance: float = 1.2, fov_deg: float = 45.0,
-                        seed: int = 0, center=None) -> SyntheticScene:
+                        seed: int = 0, center=None) -> NerfDataset:
     """Cameras on a sphere looking at the scene center, one shaded sphere."""
     obj_center = SPHERE_CENTER if center is None else np.asarray(center, np.float32)
     return make_multi_sphere_dataset(
@@ -83,7 +60,7 @@ def make_sphere_dataset(n_views: int = 16, resolution: int = 64,
 
 def make_multi_sphere_dataset(spheres, n_views: int = 16, resolution: int = 64,
                               cam_distance: float = 1.2, fov_deg: float = 45.0,
-                              seed: int = 0, aabb_scale: int = 1) -> SyntheticScene:
+                              seed: int = 0, aabb_scale: int = 1) -> NerfDataset:
     """N shaded spheres with nearest-hit compositing."""
     rng = np.random.default_rng(seed)
     w = h = resolution
@@ -127,10 +104,13 @@ def make_multi_sphere_dataset(spheres, n_views: int = 16, resolution: int = 64,
             np.concatenate([shade_sphere(best_n) * alpha, alpha], -1).astype(np.float32)
         )
     n = n_views
-    return SyntheticScene(
+    return NerfDataset(
         images=np.stack(images),
         poses=np.stack(poses),
         focal=np.full((n, 2), focal, np.float32),
         principal=np.full((n, 2), 0.5, np.float32),
+        scale=1.0,
+        offset=(0.5, 0.5, 0.5),
         aabb_scale=aabb_scale,
+        from_na=True,
     )

@@ -77,6 +77,18 @@ def probe_candidates(origins: torch.Tensor, directions: torch.Tensor,
     return CandidateProbe(t0=t0, seg=seg, total=total, hit=(total > 0.0) & enters)
 
 
+def march_probe(origins: torch.Tensor, directions: torch.Tensor, aabb: AABB,
+                occupancy: OccupancyGrid | None, n_candidates: int,
+                cone_angle: float = 0.0, near: float = 0.0) -> torch.Tensor:
+    """Total occupied length per ray (R,) at the deterministic candidate
+    midpoints, the march without sample draws.  A ray with 0 draws
+    mask-all-False samples and composites to nothing, so the render path
+    skips its field evaluation (reference alive-ray compaction,
+    testbed_nerf.cu:2479-2595)."""
+    return probe_candidates(origins, directions, aabb, occupancy, n_candidates,
+                            None, cone_angle=cone_angle, near=near).total
+
+
 def draw_from_probe(probe: CandidateProbe, origins: torch.Tensor,
                     directions: torch.Tensor, budget: int,
                     xi: torch.Tensor | None) -> MarchedSamples:

@@ -25,7 +25,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from neus2_tpu_torch.constants import NERF_GRIDSIZE, TRAIN_TRANSMITTANCE_EPS
+from neus2_tpu_torch.constants import NERF_GRIDSIZE, STEPSIZE, TRAIN_TRANSMITTANCE_EPS
 from neus2_tpu_torch.engine import occupancy as occ
 from neus2_tpu_torch.engine.march import (
     CandidateProbe,
@@ -60,6 +60,12 @@ class TrainConfig:
     optim: OptimConfig = OptimConfig()
     n_rays: int = 4096
     samples_per_ray: int = 64
+    # The Testbed's adaptive (n_rays << b, samples_per_ray >> b) buckets
+    # (desired_batch_bucket; reference rays/batch auto-tune,
+    # testbed_nerf.cu:3434-3435).
+    adaptive_batch: bool = True
+    min_samples_per_ray: int = 16
+    adaptive_samples_factor: float = 0.45
     n_candidates: int = 192
     aabb_scale: int = 1
     near: float = 0.0
@@ -73,6 +79,12 @@ class TrainConfig:
     occ_cascades: int = 1
     cone_angle_constant: float = 1.0 / 256.0
     hit_oversample: int = 2
+    # Error-map importance sampling is not ported yet.
+    use_error_map: bool = False
+
+    def __post_init__(self):
+        if self.use_error_map:
+            raise NotImplementedError("error-map sampling is not ported yet")
 
     @property
     def cone_angle(self) -> float:
@@ -335,6 +347,23 @@ def occupancy_prior_sweep(state: TrainState, config: TrainConfig,
     for _ in range(sweeps):
         state = occupancy_update(state, config)
     return state
+
+
+def desired_batch_bucket(occ_len_ema: float, config: TrainConfig) -> int:
+    """Adaptive-batch bucket: bucket b trades samples for rays at a constant
+    sample budget, (n_rays << b) x (samples_per_ray >> b), once the occupied
+    chord is short enough to keep ``adaptive_samples_factor`` of the
+    reference's marching density (occ_len / STEPSIZE samples a ray)."""
+    s_needed = config.adaptive_samples_factor * occ_len_ema / STEPSIZE
+    s0 = config.samples_per_ray
+    b = 0
+    while (
+        b < 3
+        and (s0 >> (b + 1)) >= config.min_samples_per_ray
+        and (s0 >> (b + 1)) >= s_needed
+    ):
+        b += 1
+    return b
 
 
 def should_update_occupancy(step: int, interval: int = 4) -> bool:

@@ -10,6 +10,8 @@ Counters that the port keeps on the host (Adam ``count``, occupancy
 
 from __future__ import annotations
 
+import dataclasses
+from pathlib import Path
 from typing import Any
 
 import numpy as np
@@ -90,3 +92,33 @@ def state_from_jax(params, ema_params, opt_state, occupancy, step, frame_step,
         frame_step=int(frame_step),
         generator=torch.Generator(device=device).manual_seed(seed),
     )
+
+
+def train_state_from_jax(state, device="cpu", seed: int = 0) -> TrainState:
+    """A port ``TrainState`` from a whole JAX ``TrainState`` (host copy:
+    numpy leaves), of which the canonical field's parts are taken."""
+    occ = state.occupancy
+    return state_from_jax(state.params, state.ema_params, state.opt_state,
+                          (occ.density, occ.bitfield, occ.ema_step),
+                          state.step, state.frame_step, device=device, seed=seed)
+
+
+def testbed_from_jax(state, hyper, config, dataset, training_step: int = 0,
+                     device="cpu", seed: int = 0):
+    """A port ``Testbed`` on ``dataset`` (a port ``NerfDataset``) whose
+    state is the JAX Testbed's: its ``TrainState`` (host copy), its
+    ``Hyperparams`` (any object with the same fields) and the port's
+    ``TrainConfig`` for it.  The dataset-derived config is applied as
+    ``load_training_data`` would; no fresh state is drawn."""
+    from neus2_tpu_torch.api.testbed import Hyperparams, Testbed
+
+    hp = Hyperparams(**{f.name: getattr(hyper, f.name)
+                        for f in dataclasses.fields(Hyperparams)})
+    tb = Testbed(config=config, hyper=hp, seed=seed, device=device)
+    tb._datasets = [dataset]
+    tb.frame_jsons = [Path("<memory:0>")]
+    tb._load_frame(0)
+    tb._derive_config()
+    tb.state = train_state_from_jax(state, device=device, seed=seed)
+    tb.training_step = int(training_step)
+    return tb

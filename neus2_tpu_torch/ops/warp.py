@@ -17,6 +17,10 @@ class AABB(NamedTuple):
     lo: tuple[float, float, float]
     hi: tuple[float, float, float]
 
+    @property
+    def diag(self) -> tuple[float, float, float]:
+        return tuple(h - l for l, h in zip(self.lo, self.hi))
+
     def _lo_hi(self, like: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         return (constant(tuple(self.lo), like.dtype, like.device),
                 constant(tuple(self.hi), like.dtype, like.device))

@@ -1,6 +1,6 @@
-"""The port's CUDA path on the card: the segment-sum kernel against its
-plain version, and one training step on the card against the same step on
-the CPU.
+"""The port's CUDA path on the card: the four segment-sum kernels against
+their plain versions, the segment-sum op layer on the card against the
+CPU, and one training step on the card against the same step on the CPU.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports neither JAX nor the JAX package, so it runs where they are absent;
@@ -27,7 +27,7 @@ import torch
 from neus2_tpu_torch.api.testbed import config_from_json
 from neus2_tpu_torch.data.synthetic import make_sphere_dataset
 from neus2_tpu_torch.engine import train as tt
-from neus2_tpu_torch.ops import segment_tile
+from neus2_tpu_torch.ops import scatter, segment_tile
 from neus2_tpu_torch.utils.tree import tree_leaves, tree_map
 
 torch.set_num_threads(2)
@@ -106,8 +106,101 @@ def test_kernel_wrapper_checks_its_inputs(cuda):
         segment_tile.segment_sum_rows(bounds, payload.t())
 
 
+def _sorted_streams(n_levels, m, n_rows, f, seed, pad=256):
+    """(L, Mp) ascending indices padded with PAD_IDX, (L, Mp, F) values."""
+    rng = np.random.default_rng(seed)
+    idx = np.sort(rng.integers(0, n_rows, (n_levels, m)), axis=-1)
+    idx = np.concatenate([idx, np.full((n_levels, pad), segment_tile.PAD_IDX)], 1)
+    vals = rng.normal(size=(n_levels, m + pad, f)).astype(np.float32)
+    vals[:, m:] = 0.0
+    return torch.from_numpy(idx.astype(np.int32)), torch.from_numpy(vals)
+
+
+@pytest.mark.parametrize("f", [2, 8])
+@pytest.mark.parametrize("kernel", ["packed", "batched", "planar"])
+def test_sorted_kernels_match_plain_versions(cuda, kernel, f):
+    """Kernels 2, 3 and 4 through their entry points: bitwise repeatable,
+    within 1e-5 * max|ref| + 1e-7 of the plain version on the same inputs,
+    one launch per call."""
+    n_rows = 1 << 14
+    idx, vals = _sorted_streams(3, 1 << 16, n_rows, f, seed=f)
+    if kernel == "packed":
+        l, mp, _ = vals.shape
+        payload = segment_tile.pack_bf16_pairs(vals.reshape(l * mp, f))
+        payload = payload.reshape(l, mp, -1).transpose(1, 2).contiguous()
+        entry, wrapper = segment_tile.sorted_segment_sum_tiles_packed, segment_tile.segment_sum_packed_rows
+    elif kernel == "batched":
+        payload = vals.transpose(1, 2).contiguous()
+        entry, wrapper = segment_tile.sorted_segment_sum_tiles_batched, segment_tile.segment_sum_batched_rows
+    else:
+        idx, payload = idx[0], vals[0].t().contiguous()
+        entry, wrapper = segment_tile.sorted_segment_sum_tiles, segment_tile.segment_sum_planar_rows
+    ref = entry(idx, payload, n_rows)  # CPU tensors: the plain version
+    before = wrapper.launches
+    got = entry(idx.to(cuda), payload.to(cuda), n_rows)
+    again = entry(idx.to(cuda), payload.to(cuda), n_rows)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 2
+    assert got.shape == ref.shape and got.dtype == torch.float32
+    assert torch.equal(got, again)
+    got = got.cpu()
+    for g, r in zip(*((got, ref) if got.dim() == 3 else ([got], [ref]))):
+        assert (g - r).abs().max() <= 1e-5 * r.abs().max() + 1e-7
+
+
+def test_sorted_kernels_write_every_row(cuda):
+    """Rows without updates come out exactly 0.0; the padding is never read."""
+    n_rows, m = 1024, 1 << 12
+    idx = torch.cat([torch.full((m,), 5), torch.full((64,), segment_tile.PAD_IDX)])
+    idx = idx.to(torch.int32)[None].repeat(2, 1)
+    vals = torch.ones((2, 8, m + 64))
+    vals[:, :, m:] = 1e30  # would show if the padding were summed
+    torch.full((1 << 22,), 7.0, device=cuda)
+    out = segment_tile.sorted_segment_sum_tiles_batched(idx.to(cuda), vals.to(cuda), n_rows).cpu()
+    assert out[:, 5].tolist() == [[float(m)] * 8] * 2
+    assert int((out != 0).sum()) == 16
+
+
+def test_sorted_wrappers_check_their_inputs(cuda):
+    bounds = torch.zeros((2, 5), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):  # F = 4 is not built
+        segment_tile.segment_sum_batched_rows(bounds, torch.zeros((2, 4, 8), device=cuda))
+    with pytest.raises(ValueError):
+        segment_tile.segment_sum_packed_rows(bounds, torch.zeros((2, 1, 8), device=cuda))
+    with pytest.raises(ValueError):  # levels disagree
+        segment_tile.segment_sum_packed_rows(
+            bounds, torch.zeros((3, 1, 8), dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError):
+        segment_tile.segment_sum_planar_rows(bounds, torch.zeros((2, 8), device=cuda))
+    with pytest.raises(ValueError):  # CPU tensors never reach a kernel
+        segment_tile.segment_sum_planar_rows(bounds[0].cpu(), torch.zeros((2, 8)))
+
+
+@pytest.mark.parametrize("method", ["auto", "sorttile", "sort"])
+def test_segment_dense_sum_on_card_matches_cpu(cuda, method):
+    """The op layer on the card against the exact CPU scatter: "auto" with
+    the uniform hint and "sorttile" go through kernel 4 on bf16-packed
+    values (error within bf16 rounding of the updates), "sort" carries fp32
+    cancellation (|err| < 0.05, the JAX package's bound for it)."""
+    n_rows, m = 1 << 14, 1 << 17
+    rng = np.random.default_rng(1)
+    idx = torch.from_numpy(rng.integers(0, n_rows, m).astype(np.int32))
+    upd = torch.from_numpy(rng.normal(size=(m, 2)).astype(np.float32))
+    ref = scatter.segment_dense_sum(idx, upd, n_rows)  # CPU: exact scatter
+    before = segment_tile.segment_sum_planar_rows.launches
+    got = scatter.segment_dense_sum(idx.to(cuda), upd.to(cuda), n_rows, method=method,
+                                    uniform_hint=True).cpu()
+    assert segment_tile.segment_sum_planar_rows.launches == before + (method != "sort")
+    assert got.shape == ref.shape
+    if method == "sort":
+        assert (got - ref).abs().max() < 0.05
+    else:
+        exact_bf16 = scatter.segment_dense_sum(idx, upd.to(torch.bfloat16).float(), n_rows)
+        assert (got - exact_bf16).abs().max() <= 1e-5 * exact_bf16.abs().max() + 1e-6
+
+
 def _small_config():
-    cfg = config_from_json(BASE_JSON)
+    cfg, _ = config_from_json(BASE_JSON)
     grid = dataclasses.replace(cfg.field.grid, n_levels=4, log2_hashmap_size=12)
     field = dataclasses.replace(cfg.field, grid=grid, sdf_hidden_dim=16, rgb_hidden_dim=16)
     return dataclasses.replace(cfg, field=field, n_rays=64, samples_per_ray=16,

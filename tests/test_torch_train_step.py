@@ -48,8 +48,9 @@ def _shrink(cfg):
 
 @pytest.mark.parametrize("name", ["base.json", "l4f8.json", "tpu_opt.json"])
 def test_config_from_json_matches(name):
-    tc = config_from_json(f"configs/{name}")
-    jc, _ = jax_config_from_json(f"configs/{name}")
+    tc, th = config_from_json(f"configs/{name}")
+    jc, jh = jax_config_from_json(f"configs/{name}")
+    assert dataclasses.asdict(th) == dataclasses.asdict(jh)
     assert dataclasses.asdict(tc.field.grid) == dataclasses.asdict(jc.field.grid)
     for f in dataclasses.fields(tc.field):
         if f.name != "grid":
@@ -102,7 +103,7 @@ def _close_tree(a_tree, b_leaves, rel):
 @pytest.fixture(scope="module")
 def start():
     jcfg = _shrink(jax_config_from_json("configs/base.json")[0])
-    tcfg = _shrink(config_from_json("configs/base.json"))
+    tcfg = _shrink(config_from_json("configs/base.json")[0])
     scene = jax_sphere(n_views=N_VIEWS, resolution=RES, seed=0)
     images = jnp.asarray(scene.images)
     cams = JCameras(jnp.asarray(scene.poses), jnp.asarray(scene.focal),
@@ -175,7 +176,7 @@ def test_train_step_matches_jax(start):
 
 
 def test_train_static_cpu_five_steps():
-    tcfg = dataclasses.replace(_shrink(config_from_json("configs/base.json")),
+    tcfg = dataclasses.replace(_shrink(config_from_json("configs/base.json")[0]),
                                occ_n_probe=4096)
     images, cams = make_sphere_dataset(N_VIEWS, RES, seed=1).to_device("cpu")
     state = tt.init_train_state(tcfg, N_VIEWS, seed=1, device="cpu")
