@@ -5,8 +5,10 @@
 
 Builds the CUDA kernels of ``neus2_tpu_torch/csrc`` from source and holds
 each of the four segment-sum kernels against its plain PyTorch version at
-the shapes its path gives it (``kernel_phase`` for kernel 1,
-``kernel_phase_sorted`` for kernels 2-4).  Then it drives each path that
+the shapes its path gives it, at F=2 and F=8 (``kernel_phase`` for kernel
+1, ``kernel_phase_sorted`` for kernels 2-4), timed with CUDA events over
+back-to-back calls (``cuda_ms``; kernel 4 and its ``index_add_`` also with
+the card held until every call is queued).  Then it drives each path that
 runs them, with the launch counts set to 0 just before and read just after:
 
   * ``op_path_phase``: the segment-sum op layer (``segment_dense_sum`` and
@@ -49,6 +51,7 @@ MESH_RES = 256
 # The batched layouts' index padding past each level's M updates, as the
 # JAX package pads them (round_up(M, 128) + 2 * chunk).
 STREAM_PAD = 4096
+HOLD_CYCLES = 40_000_000  # ~20 ms of spinning at the H100's clock (cuda_ms's hold)
 
 
 def fail(msg: str) -> int:
@@ -97,13 +100,18 @@ def max_level_err(torch, name: str, got, again, ref) -> float:
     return err
 
 
-def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3, hold: bool = False) -> float:
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls.  With
+    ``hold``, a spin kernel queued first holds the card until the host has
+    queued every call, so a call whose host-side work outlasts its kernels
+    is timed by the card alone (its device time), not by the host."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if hold:
+        torch.cuda._sleep(HOLD_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -133,8 +141,9 @@ def kernel_phase(torch, st, cfg, f: int) -> dict:
                         st.segment_sum_all_levels(idx, upd, sizes),
                         st.segment_sum_all_levels_ref(idx, upd, sizes))
 
-    bounds, payload = st.sort_updates(idx, upd, sizes)
-    kernel_ms = cuda_ms(torch, lambda: st.segment_sum_rows(bounds, payload))
+    n_upd, n_rows = len(sizes) * m, sum(sizes)
+    keys, payload = st.sort_updates(idx, upd, sizes)
+    kernel_ms = cuda_ms(torch, lambda: st.segment_sum_rows(keys, payload, n_rows))
     sort_ms = cuda_ms(torch, lambda: st.sort_updates(idx, upd, sizes))
     plain_ms = cuda_ms(torch, lambda: st.segment_sum_all_levels_ref(idx, upd, sizes), iters=5)
     quant = [u.to(torch.bfloat16).float() for u in upd]
@@ -144,17 +153,17 @@ def kernel_phase(torch, st, cfg, f: int) -> dict:
             torch.zeros((s, f), device="cuda").index_add_(0, i, u)
 
     library_ms = cuda_ms(torch, library)
-    # The timed kernel reads the sorted bf16 payload and the int32 row
-    # bounds once and writes every fp32 row once; the int32 keys are read
-    # by the sort, which is timed apart (sort_ms).
-    n_upd, n_rows = len(sizes) * m, sum(sizes)
-    bytes_moved = n_upd * 2 * f + (n_rows + 1) * 4 + n_rows * f * 4
+    # The timed kernel reads the sorted int32 keys and bf16 payload once and
+    # writes every fp32 row once; the sort in front of it (sort, cast, cat,
+    # gather) is timed apart (sort_ms).
+    bytes_moved = n_upd * 4 + n_upd * 2 * f + n_rows * f * 4
     bound_ms, bound_by = bound(bytes_moved, n_upd * f)
     out = {
         "F": f, "levels": len(sizes), "updates_per_level": m, "rows": n_rows,
-        "max_abs_err": err, "kernel_ms": kernel_ms, "sort_ms": sort_ms,
-        "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "bytes": bytes_moved,
+        "max_abs_err": err, "kernel_ms": kernel_ms,
+        "sort_ms": sort_ms, "sort_plus_kernel_ms": sort_ms + kernel_ms,
+        "plain_ms": plain_ms, "library_ms": library_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "bytes": bytes_moved,
     }
     print("kernel_phase " + json.dumps(out), flush=True)
     return out
@@ -181,12 +190,12 @@ def sort_and_pad(torch, st, idx, upd):
     return torch.cat([idx_s, pad_i], 1), torch.cat([upd_s, pad_u], 1)
 
 
-def kernel_phase_sorted(torch, st, cfg, f: int, with_planar: bool) -> dict:
-    """Kernels 2 and 3 (and, with ``with_planar``, kernel 4) against their
-    plain versions on the same sorted inputs, with their times.  Bytes
-    counted: each real update's payload read once (the padding is never
-    read), the (n_rows + 1) int32 row bounds of each level, each fp32
-    output row written once; operations: one fp32 add per update and
+def kernel_phase_sorted(torch, st, cfg, f: int) -> dict:
+    """Kernels 2, 3 and 4 against their plain versions on the same sorted
+    inputs, with their times.  Bytes counted: each real update's payload
+    read once (the padding is never read), for kernels 2 and 3 the (n_rows
+    + 1) int32 row bounds of each level, for kernel 4 its int32 keys, each
+    fp32 output row written once; operations: one fp32 add per update and
     channel.  ``library_ms``: per-level ``index_add_`` of the same
     (rounded) payload into an fp32 table."""
     idx, upd, n_rows = sorted_streams(torch, cfg, f, seed=20 + f)
@@ -233,21 +242,20 @@ def kernel_phase_sorted(torch, st, cfg, f: int, with_planar: bool) -> dict:
                                               idx_p, packed, n_rows),
                                           library_for(rounded))
 
-    if with_planar:
-        # Kernel 4: ONE hashed level, fp32 exact.
-        lvl = n_levels - 1
-        i4, v4 = idx_p[lvl, :m].contiguous(), vals[lvl, :, :m].contiguous()
-        b4, i4_long = st.row_bounds(i4, n_rows), i4.long()
-        err = max_level_err(torch, "segment_sum_planar_rows",
-                            st.segment_sum_planar_rows(b4, v4),
-                            st.segment_sum_planar_rows(b4, v4),
-                            st.sorted_segment_sum_tiles_ref(i4, v4, n_rows))
-        n_bytes = m * 4 * f + (n_rows + 1) * 4 + n_rows * f * 4
-        records["segment_sum_planar_rows"] = (
-            err, n_bytes, lambda: st.segment_sum_planar_rows(b4, v4),
-            lambda: st.sorted_segment_sum_tiles_ref(i4, v4, n_rows),
-            lambda: torch.zeros((f, n_rows), device="cuda").index_add_(1, i4_long, v4),
-        )
+    # Kernel 4: ONE hashed level, fp32 exact, from its sorted keys.
+    lvl = n_levels - 1
+    i4, v4 = idx_p[lvl, :m].contiguous(), vals[lvl, :, :m].contiguous()
+    i4_long = i4.long()
+    err = max_level_err(torch, "segment_sum_planar_rows",
+                        st.segment_sum_planar_rows(i4, v4, n_rows),
+                        st.segment_sum_planar_rows(i4, v4, n_rows),
+                        st.sorted_segment_sum_tiles_ref(i4, v4, n_rows))
+    n_bytes = m * 4 + m * 4 * f + n_rows * f * 4
+    records["segment_sum_planar_rows"] = (
+        err, n_bytes, lambda: st.segment_sum_planar_rows(i4, v4, n_rows),
+        lambda: st.sorted_segment_sum_tiles_ref(i4, v4, n_rows),
+        lambda: torch.zeros((f, n_rows), device="cuda").index_add_(1, i4_long, v4),
+    )
 
     out = {}
     for name, (err, n_bytes, kernel, plain, library) in records.items():
@@ -260,6 +268,9 @@ def kernel_phase_sorted(torch, st, cfg, f: int, with_planar: bool) -> dict:
             "library_ms": cuda_ms(torch, library, iters=5), "bound_ms": bound_ms,
             "bound_by": bound_by, "bytes": n_bytes,
         }
+        if name == "segment_sum_planar_rows":  # 20 us calls: their device time too
+            out[name]["held_ms"] = cuda_ms(torch, kernel, hold=True)
+            out[name]["library_held_ms"] = cuda_ms(torch, library, iters=5, hold=True)
         print(f"kernel_phase_sorted {name} " + json.dumps(out[name]), flush=True)
     return out
 
@@ -562,14 +573,15 @@ def training_phase(torch, tt, st, cfg, images, cams):
 def profile_phase(torch, tt, state, images, cams, cfg, steps: int = PROFILE_STEPS) -> dict:
     """Where the step's time goes, after the main path's counts are read:
     ``steps`` steps timed on the host clock without a log callback, then
-    as many traced with ``torch.profiler``.  The busy share is the traced
-    window's device time over the untraced window's step time (the
-    profiler slows the host, so the traced window's own wall time would
-    understate it)."""
+    as many traced with ``torch.profiler``, one kernel-1 launch in each.
+    The busy share is the traced window's device time over the untraced
+    window's step time (the profiler slows the host, so the traced
+    window's own wall time would understate it)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    launches = segment_sum_launches()
     t0 = time.perf_counter()
     state = tt.train_static(state, images, cams, cfg, steps)
     torch.cuda.synchronize()
@@ -578,6 +590,9 @@ def profile_phase(torch, tt, state, images, cams, cfg, steps: int = PROFILE_STEP
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         tt.train_static(state, images, cams, cfg, steps)
         torch.cuda.synchronize()
+    if segment_sum_launches() - launches != 2 * steps:
+        raise AssertionError(f"profile phase: {segment_sum_launches() - launches} kernel-1 "
+                             f"launches in {2 * steps} steps")
     events = prof.key_averages()
     device = sorted((e for e in events if e.device_type == DeviceType.CUDA),
                     key=lambda e: e.self_device_time_total, reverse=True)
@@ -591,9 +606,14 @@ def profile_phase(torch, tt, state, images, cams, cfg, steps: int = PROFILE_STEP
         return [{"name": e.key[:80], "ms_per_step": getattr(e, attr) / 1e3 / steps,
                  "calls_per_step": e.count / steps} for e in evs[:k]]
 
+    def named(part):  # device ms/step of the kernels whose name holds ``part``
+        return sum(e.self_device_time_total for e in device if part in e.key) / 1e3 / steps
+
     out = {
         "steps": steps, "ms_per_step": ms_per_step,
         "device_ms_per_step": device_ms, "device_busy_share": device_ms / ms_per_step,
+        "segment_sum_ms_per_step": named("stream_sum_kernel") + named("stream_fixup_kernel"),
+        "radix_sort_ms_per_step": named("RadixSort"),
         "launches_per_step": sum(e.count for e in device) / steps,
         "h2d_copies_per_step": sum(e.count for e in device if "HtoD" in e.key) / steps,
         "top_device": top(device, "self_device_time_total", 10),
@@ -634,10 +654,9 @@ def main() -> int:
     print(f"build_s {time.perf_counter() - t0:.1f}", flush=True)
 
     cfg, hyper = config_from_json(REPO / "configs" / "base.json")
-    k1 = kernel_phase(torch, st, cfg, 2)
-    kernel_phase(torch, st, cfg, 8)
-    sorted_k = kernel_phase_sorted(torch, st, cfg, 2, with_planar=True)
-    kernel_phase_sorted(torch, st, cfg, 8, with_planar=False)
+    k1, k1_f8 = kernel_phase(torch, st, cfg, 2), kernel_phase(torch, st, cfg, 8)
+    sorted_k = kernel_phase_sorted(torch, st, cfg, 2)
+    sorted_f8 = kernel_phase_sorted(torch, st, cfg, 8)
     ops = op_path_phase(torch, st, sc, cfg)
     field_agrees_with_cpu(torch, cfg)
     images, cams = make_sphere_dataset(n_views=16, resolution=SCENE_RES, seed=0).to_device("cuda")
@@ -646,25 +665,32 @@ def main() -> int:
     del state, images, cams
     tb = testbed_phase(torch, st, cfg, hyper)
 
-    def entry(name, replaces, rec, launches):
+    def entry(name, replaces, rec, rec_f8, launches):
         return {
             "name": name, "route": "cuda", "source": "neus2_tpu_torch/csrc/segment_sum.cu",
             "replaces": replaces, "launches": launches, "max_abs_err": rec["max_abs_err"],
             "ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+            "f8": {k: rec_f8[k] for k in ("max_abs_err", "kernel_ms", "plain_ms", "bound_ms",
+                                          "library_ms")},
         }
 
     kernels = [
-        {**entry("segment_sum_rows", "neus2_tpu/ops/segment_tile.py:376", k1, tb["launches"]),
+        {**entry("segment_sum_rows", "neus2_tpu/ops/segment_tile.py:376", k1, k1_f8,
+                 tb["launches"]),
          "sort_ms": k1["sort_ms"], "launches_per_step": tb["launches_per_step"],
          "train_static_launches": train["launches"]},
     ] + [
-        entry(name, replaces, sorted_k[name], ops["launches"][name])
+        entry(name, replaces, sorted_k[name], sorted_f8[name], ops["launches"][name])
         for name, replaces in (
             ("segment_sum_packed_rows", "neus2_tpu/ops/segment_tile.py:376"),
             ("segment_sum_batched_rows", "neus2_tpu/ops/segment_tile.py:211"),
-            ("segment_sum_planar_rows", "neus2_tpu/ops/segment_tile.py:75"),
         )
+    ] + [
+        {**entry("segment_sum_planar_rows", "neus2_tpu/ops/segment_tile.py:75",
+                 sorted_k["segment_sum_planar_rows"], sorted_f8["segment_sum_planar_rows"],
+                 ops["launches"]["segment_sum_planar_rows"]),
+         **{k: sorted_k["segment_sum_planar_rows"][k] for k in ("held_ms", "library_held_ms")}},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

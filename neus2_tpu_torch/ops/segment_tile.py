@@ -16,11 +16,16 @@ row_block`` check):
   3       sorted_segment_sum_tiles_batched (:211)       segment_sum_batched_rows fp32, bf16 on load
   4       sorted_segment_sum_tiles (_tile_kernel :75)   segment_sum_planar_rows  fp32, exact
 
-The sort stays outside the kernel, as in the JAX package (``lax.sort``
-there, a stable ``torch.sort`` here); ``torch.searchsorted`` turns each
-level's sorted indices into per-row bounds, and the kernel sums each row's
-contiguous slice with one warp in a fixed order.  Bound on the H100:
-memory traffic (payload and row bounds in, fp32 rows out); PERF.md has the
+The sort stays outside the kernels, as in the JAX package (``lax.sort``
+there, a stable ``torch.sort`` here).  ``csrc/segment_sum.cu`` has two
+bodies.  Kernels 1 and 4 reduce ONE sorted int32 key stream and read the
+keys themselves: a load-balanced reduce-by-key over fixed tiles of
+consecutive updates (a segmented warp scan, a carry in tile order for rows
+that cross tiles), so no row bounds are computed in front of them.
+Kernels 2 and 3 take L streams and per-row bounds from
+``torch.searchsorted`` (``row_bounds``), one warp per row.  Every sum is
+taken in a fixed order, without atomics.  Bound on the H100: memory
+traffic (keys or bounds and payload in, fp32 rows out); PERF.md has the
 measured times.
 
 A CPU tensor takes the plain version (``*_ref``: ``index_add_`` in float64
@@ -35,6 +40,7 @@ such limit and sums them all (``debug_overflow_check`` measures the load).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -118,82 +124,116 @@ def segment_sum_all_levels_ref(idx_list, upd_list, sizes) -> list[torch.Tensor]:
 
 _PTR, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _ARGTYPES = {
-    "segment_sum_rows": [_PTR, _PTR, _PTR, _I64, _I32, _PTR],
+    "segment_sum_rows": [_PTR, _PTR, _PTR, _PTR, _I64, _I64, _I32, _PTR],
+    "segment_sum_planar": [_PTR, _PTR, _PTR, _PTR, _I64, _I64, _I32, _PTR],
     "segment_sum_packed": [_PTR, _PTR, _PTR, _I64, _I64, _I64, _I32, _PTR],
     "segment_sum_batched": [_PTR, _PTR, _PTR, _I64, _I64, _I64, _I32, _PTR],
-    "segment_sum_planar": [_PTR, _PTR, _PTR, _I64, _I64, _I32, _PTR],
+    "segment_sum_stream_scratch_bytes": [_I64, _I32],
 }
 
 
+@functools.cache
 def _entry(name: str):
     fn = getattr(cuda_build.load("segment_sum"), name)
     fn.argtypes = _ARGTYPES[name]
-    fn.restype = ctypes.c_int
+    fn.restype = ctypes.c_longlong if name.endswith("_bytes") else ctypes.c_int
     return fn
 
 
-def _launch(wrapper, entry: str, bounds: torch.Tensor, payload: torch.Tensor, dtype,
-            f: int, *sizes: int) -> torch.Tensor:
-    """What every wrapper does: check ``bounds`` ((n_rows + 1,) for one
-    stream or (L, n_rows + 1) for L) and ``payload`` (one more dimension, of
-    ``dtype``), allocate the fp32 output ((L,) n_rows x f), launch the C
-    entry point ``entry`` with ``[L,] n_rows, *sizes, f`` after the three
-    pointers, and count the launch in ``wrapper.launches``."""
-    if bounds.device.type != "cuda":
-        raise ValueError("the segment-sum kernels need tensors on a CUDA device")
-    if bounds.dtype != torch.int32 or bounds.dim() not in (1, 2) or not bounds.is_contiguous():
-        raise ValueError("bounds must be a contiguous 1-D or 2-D int32 tensor")
-    if payload.device != bounds.device:
-        raise ValueError("bounds and payload must lie on one CUDA device")
-    dim = bounds.dim() + 1
+def _check_payload(keys: torch.Tensor, payload: torch.Tensor, dtype, dim: int) -> None:
+    if payload.device != keys.device:
+        raise ValueError("the keys or bounds and the payload must lie on one CUDA device")
     if payload.dtype != dtype or payload.dim() != dim or not payload.is_contiguous():
         raise ValueError(f"the payload must be a contiguous {dim}-D {dtype} tensor")
-    levels = tuple(bounds.shape[:-1])
-    if tuple(payload.shape[:dim - 2]) != levels:
-        raise ValueError("bounds and payload disagree on the number of levels")
+
+
+def _check_features(f: int) -> None:
     if f not in _FEATURES:
         raise ValueError(f"features per level must be one of {_FEATURES}, got {f}")
-    n_rows = bounds.shape[-1] - 1
-    out = torch.empty((*levels, n_rows, f), dtype=torch.float32, device=bounds.device)
-    stream = torch.cuda.current_stream(bounds.device).cuda_stream
-    rc = _entry(entry)(bounds.data_ptr(), payload.data_ptr(), out.data_ptr(), *levels, n_rows,
-                       *sizes, f, stream)
+
+
+def _run(wrapper, entry: str, device: torch.device, *args) -> None:
+    rc = _entry(entry)(*args, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{entry} launch failed: cudaError_t {rc}")
     wrapper.launches += 1
+
+
+def _launch_stream(wrapper, entry: str, keys: torch.Tensor, payload: torch.Tensor,
+                   n_rows: int, f: int, m: int, dtype) -> torch.Tensor:
+    """What the stream wrappers (kernels 1 and 4) do: check the (M,) int32
+    keys and the 2-D ``dtype`` payload of M updates, allocate the fp32
+    (n_rows, f) output and the per-tile scratch, launch ``entry`` on the
+    current stream and count the launch in ``wrapper.launches``."""
+    if keys.device.type != "cuda":
+        raise ValueError("the segment-sum kernels need tensors on a CUDA device")
+    if keys.dtype != torch.int32 or keys.dim() != 1 or not keys.is_contiguous():
+        raise ValueError("keys must be a contiguous 1-D int32 tensor")
+    _check_payload(keys, payload, dtype, 2)
+    _check_features(f)
+    if m != keys.shape[0]:
+        raise ValueError(f"{keys.shape[0]} keys for a payload of {m} updates")
+    if not 0 <= n_rows < 2**31:
+        raise ValueError(f"n_rows must lie in [0, 2^31), got {n_rows}")
+    out = torch.empty((n_rows, f), dtype=torch.float32, device=keys.device)
+    scratch = torch.empty(_entry("segment_sum_stream_scratch_bytes")(m, f) // 4,
+                          dtype=torch.int32, device=keys.device)
+    _run(wrapper, entry, keys.device, keys.data_ptr(), payload.data_ptr(), out.data_ptr(),
+         scratch.data_ptr(), m, n_rows, f)
     return out
 
 
-def segment_sum_rows(bounds: torch.Tensor, payload: torch.Tensor) -> torch.Tensor:
-    """Kernel 1: (n_rows + 1,) int32 bounds and (n_upd, F) bf16 sorted
-    payload -> (n_rows, F) fp32 row sums.  Counts its launches in
-    ``segment_sum_rows.launches``."""
-    return _launch(segment_sum_rows, "segment_sum_rows", bounds, payload, torch.bfloat16,
-                   payload.shape[-1])
+def _launch_rows(wrapper, entry: str, bounds: torch.Tensor, payload: torch.Tensor, dtype,
+                 f: int, m_pad: int) -> torch.Tensor:
+    """What the row wrappers (kernels 2 and 3) do: check the (L, n_rows + 1)
+    int32 bounds and the 3-D ``dtype`` payload of L levels, allocate the
+    fp32 (L, n_rows, f) output, launch ``entry`` and count the launch."""
+    if bounds.device.type != "cuda":
+        raise ValueError("the segment-sum kernels need tensors on a CUDA device")
+    if bounds.dtype != torch.int32 or bounds.dim() != 2 or not bounds.is_contiguous():
+        raise ValueError("bounds must be a contiguous 2-D int32 tensor")
+    _check_payload(bounds, payload, dtype, 3)
+    if payload.shape[0] != bounds.shape[0]:
+        raise ValueError("bounds and payload disagree on the number of levels")
+    _check_features(f)
+    n_levels, n_rows = bounds.shape[0], bounds.shape[1] - 1
+    out = torch.empty((n_levels, n_rows, f), dtype=torch.float32, device=bounds.device)
+    _run(wrapper, entry, bounds.device, bounds.data_ptr(), payload.data_ptr(), out.data_ptr(),
+         n_levels, n_rows, m_pad, f)
+    return out
+
+
+def segment_sum_rows(keys_sorted: torch.Tensor, payload: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """Kernel 1: (M,) ascending int32 keys and the (M, F) bf16 payload in
+    key order -> (n_rows, F) fp32 row sums; keys outside [0, n_rows) match
+    no row.  Counts its launches in ``segment_sum_rows.launches``."""
+    return _launch_stream(segment_sum_rows, "segment_sum_rows", keys_sorted, payload, n_rows,
+                          payload.shape[-1], payload.shape[0], torch.bfloat16)
+
+
+def segment_sum_planar_rows(keys_sorted: torch.Tensor, vals: torch.Tensor,
+                            n_rows: int) -> torch.Tensor:
+    """Kernel 4: (M,) ascending int32 keys and (F, M) fp32 values, summed
+    exactly -> (n_rows, F) fp32; keys outside [0, n_rows) match no row.
+    Counts its launches in ``segment_sum_planar_rows.launches``."""
+    return _launch_stream(segment_sum_planar_rows, "segment_sum_planar", keys_sorted, vals,
+                          n_rows, vals.shape[0], vals.shape[-1], torch.float32)
 
 
 def segment_sum_packed_rows(bounds: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
     """Kernel 2: (L, n_rows + 1) int32 bounds and (L, P, Mp) int32 packed
     bf16 pairs -> (L, n_rows, 2P) fp32.  Counts its launches in
     ``segment_sum_packed_rows.launches``."""
-    return _launch(segment_sum_packed_rows, "segment_sum_packed", bounds, packed, torch.int32,
-                   2 * packed.shape[-2], packed.shape[-1])
+    return _launch_rows(segment_sum_packed_rows, "segment_sum_packed", bounds, packed,
+                        torch.int32, 2 * packed.shape[-2], packed.shape[-1])
 
 
 def segment_sum_batched_rows(bounds: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
     """Kernel 3: (L, n_rows + 1) int32 bounds and (L, F, Mp) fp32 values,
     rounded to bf16 on load -> (L, n_rows, F) fp32.  Counts its launches in
     ``segment_sum_batched_rows.launches``."""
-    return _launch(segment_sum_batched_rows, "segment_sum_batched", bounds, vals, torch.float32,
-                   vals.shape[-2], vals.shape[-1])
-
-
-def segment_sum_planar_rows(bounds: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
-    """Kernel 4: (n_rows + 1,) int32 bounds and (F, M) fp32 values, summed
-    exactly -> (n_rows, F) fp32.  Counts its launches in
-    ``segment_sum_planar_rows.launches``."""
-    return _launch(segment_sum_planar_rows, "segment_sum_planar", bounds, vals, torch.float32,
-                   vals.shape[-2], vals.shape[-1])
+    return _launch_rows(segment_sum_batched_rows, "segment_sum_batched", bounds, vals,
+                        torch.float32, vals.shape[-2], vals.shape[-1])
 
 
 for _wrapper in (segment_sum_rows, segment_sum_packed_rows, segment_sum_batched_rows,
@@ -210,10 +250,18 @@ KERNELS = (segment_sum_rows, segment_sum_packed_rows, segment_sum_batched_rows,
 def row_bounds(idx_sorted: torch.Tensor, n_rows: int) -> torch.Tensor:
     """(..., M) ascending indices -> (..., n_rows + 1) int32: row r of each
     stream is [bounds[r], bounds[r + 1]); indices >= n_rows fall past the
-    last bound."""
+    last bound (kernels 2 and 3)."""
     rows = torch.arange(n_rows + 1, dtype=idx_sorted.dtype, device=idx_sorted.device)
     rows = rows.expand(idx_sorted.shape[:-1] + (n_rows + 1,)).contiguous()
     return torch.searchsorted(idx_sorted.contiguous(), rows, out_int32=True)
+
+
+def _as_keys(idx_sorted: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """Ascending indices as the stream kernels' int32 keys; wider indices
+    are clamped to [-1, n_rows] first, so none wraps into the table."""
+    if idx_sorted.dtype != torch.int32:
+        idx_sorted = idx_sorted.clamp(-1, n_rows).to(torch.int32)
+    return idx_sorted.contiguous()
 
 
 def _check_row_block(n_rows: int, row_block: int) -> None:
@@ -228,8 +276,8 @@ def sorted_segment_sum_tiles(idx_sorted: torch.Tensor, vals_planar: torch.Tensor
     _check_row_block(n_rows, row_block)
     if idx_sorted.device.type == "cpu":
         return sorted_segment_sum_tiles_ref(idx_sorted, vals_planar, n_rows)
-    return segment_sum_planar_rows(row_bounds(idx_sorted, n_rows),
-                                   vals_planar.to(torch.float32).contiguous())
+    return segment_sum_planar_rows(_as_keys(idx_sorted, n_rows),
+                                   vals_planar.to(torch.float32).contiguous(), n_rows)
 
 
 def segment_sum_sorttile(idx: torch.Tensor, upd: torch.Tensor, n_rows: int,
@@ -296,10 +344,10 @@ def sorted_segment_sum_tiles_packed(idx_sorted: torch.Tensor, packed: torch.Tens
 def sort_updates(idx_list, upd_list, sizes):
     """All levels' updates in global-row order.
 
-    Returns (bounds (n_rows + 1,) int32, payload (n_upd, F) bf16) where the
-    updates of global row r are payload[bounds[r]:bounds[r + 1]].  The sort
-    is stable, so equal keys keep their input order and the kernel's sums
-    are repeatable."""
+    Returns (keys (n_upd,) int32 ascending, payload (n_upd, F) bf16): the
+    key of level l's update of row r is sum(sizes[:l]) + r, and payload[m]
+    is the update keyed keys[m].  The sort is stable, so equal keys keep
+    their input order and the kernel's sums are repeatable."""
     offsets, total = [], 0
     for s in sizes:
         offsets.append(total)
@@ -309,7 +357,7 @@ def sort_updates(idx_list, upd_list, sizes):
     )
     keys_sorted, perm = torch.sort(keys, stable=True)
     payload = torch.cat([u.to(torch.bfloat16) for u in upd_list])[perm]
-    return row_bounds(keys_sorted, total), payload.contiguous()
+    return keys_sorted, payload.contiguous()
 
 
 def segment_sum_all_levels(idx_list, upd_list, sizes) -> list[torch.Tensor]:
@@ -317,8 +365,8 @@ def segment_sum_all_levels(idx_list, upd_list, sizes) -> list[torch.Tensor]:
     fp32 -> list of (sizes[l], F) views of one flat buffer (kernel 1)."""
     if idx_list[0].device.type == "cpu":
         return segment_sum_all_levels_ref(idx_list, upd_list, sizes)
-    bounds, payload = sort_updates(idx_list, upd_list, sizes)
-    flat = segment_sum_rows(bounds, payload)
+    keys, payload = sort_updates(idx_list, upd_list, sizes)
+    flat = segment_sum_rows(keys, payload, sum(int(s) for s in sizes))
     return list(torch.split(flat, [int(s) for s in sizes]))
 
 

@@ -1,5 +1,5 @@
 """The port's CUDA path on the card: the four segment-sum kernels against
-their plain versions, the segment-sum op layer on the card against the
+their plain versions (kernels 1 and 4 also on edge streams), the segment-sum op layer on the card against the
 CPU, and one training step on the card against the same step on the CPU.
 
 Every test here needs a CUDA device and skips without one.  The file
@@ -94,16 +94,104 @@ def test_kernel_writes_every_row(cuda):
 
 
 def test_kernel_wrapper_checks_its_inputs(cuda):
-    bounds = torch.zeros(3, dtype=torch.int32, device=cuda)
+    keys = torch.zeros(4, dtype=torch.int32, device=cuda)
     payload = torch.zeros((4, 2), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError):
-        segment_tile.segment_sum_rows(bounds, payload.float())
+        segment_tile.segment_sum_rows(keys, payload.float(), 3)
     with pytest.raises(ValueError):
-        segment_tile.segment_sum_rows(bounds.long(), payload)
+        segment_tile.segment_sum_rows(keys.long(), payload, 3)
     with pytest.raises(ValueError):
-        segment_tile.segment_sum_rows(bounds, torch.zeros((4, 3), dtype=torch.bfloat16, device=cuda))
+        segment_tile.segment_sum_rows(keys, torch.zeros((4, 3), dtype=torch.bfloat16, device=cuda), 3)
     with pytest.raises(ValueError):
-        segment_tile.segment_sum_rows(bounds, payload.t())
+        segment_tile.segment_sum_rows(keys, payload.t(), 3)
+    with pytest.raises(ValueError):  # a key for every update
+        segment_tile.segment_sum_rows(keys[:3], payload, 3)
+    with pytest.raises(ValueError):
+        segment_tile.segment_sum_rows(keys, payload, -1)
+
+
+_TILE = 2048  # updates per block of the stream body at F=2 (1024 at F=8)
+_EDGE_STREAMS = ["one_row_many_tiles", "every_second_row_empty", "inner_keys_only",
+                 "pad_and_negative", "ragged_length", "shorter_than_tile", "empty_stream",
+                 "unaligned", "heavy_and_light", "gaps_wider_than_a_tile"]
+
+
+def _edge_stream(case, f, seed):
+    """(keys (M,) int32 ascending, values (M, F) fp32, n_rows) of one edge
+    case of the stream body."""
+    rng = np.random.default_rng(seed)
+    n_rows, m = 3000, 20000
+    if case == "one_row_many_tiles":
+        n_rows, keys = 10, np.full(3 * _TILE + 100, 3)
+    elif case == "every_second_row_empty":
+        keys = 2 * rng.integers(0, n_rows // 2, m)
+    elif case == "inner_keys_only":  # first key > 0, last key < n_rows - 1
+        keys = rng.integers(100, n_rows - 100, m)
+    elif case == "pad_and_negative":
+        keys = np.concatenate([rng.integers(-50, 0, 300), rng.integers(0, n_rows, m),
+                               np.full(700, segment_tile.PAD_IDX)])
+    elif case == "ragged_length":  # M neither a multiple of 4 nor of the tile
+        keys = rng.integers(0, n_rows, 3 * _TILE + 5)
+    elif case == "shorter_than_tile":
+        n_rows, keys = 50, rng.integers(0, 50, 100)
+    elif case == "empty_stream":
+        n_rows, keys = 37, np.zeros(0, np.int64)
+    elif case == "unaligned":  # the card's copies start 4 (keys) and 2 or 4 bytes off 16
+        keys = rng.integers(0, n_rows, 5001)
+    elif case == "gaps_wider_than_a_tile":  # three clusters, 20,000 empty rows apart
+        n_rows = 50000
+        keys = np.concatenate([rng.integers(lo, lo + 100, m // 3) for lo in (0, 20000, 45000)])
+    else:  # heavy_and_light: four rows of 3000 updates among uniform ones
+        keys = np.concatenate([np.repeat([7, 8, 1500, n_rows - 1], 3000),
+                               rng.integers(0, n_rows, m)])
+    keys = np.sort(keys).astype(np.int32)
+    return keys, rng.normal(size=(keys.shape[0], f)).astype(np.float32), n_rows
+
+
+@pytest.mark.parametrize("case", _EDGE_STREAMS)
+@pytest.mark.parametrize("f", [2, 8])
+@pytest.mark.parametrize("kernel", ["rows", "planar"])
+def test_stream_kernels_on_edge_streams(cuda, kernel, f, case):
+    """Kernels 1 and 4 (the stream body): within 1e-5 * max|ref| + 1e-7 of a float64 sum of the same
+    payload over the keys in [0, n_rows), rows without updates exactly 0.0,
+    two launches bitwise equal."""
+    keys, vals, n_rows = _edge_stream(case, f, seed=f)
+    k = torch.from_numpy(keys)
+    if kernel == "rows":
+        payload = torch.from_numpy(vals).to(torch.bfloat16)  # (M, F)
+        summed = payload.double()
+        wrapper = segment_tile.segment_sum_rows
+    else:
+        payload = torch.from_numpy(vals.T.copy())  # (F, M)
+        summed = torch.from_numpy(vals).double()
+        wrapper = segment_tile.segment_sum_planar_rows
+    keep = (k >= 0) & (k < n_rows)
+    ref = torch.zeros((n_rows, f), dtype=torch.float64)
+    ref = ref.index_add_(0, k[keep].long(), summed[keep]).float()
+    empty = torch.ones(n_rows, dtype=torch.bool)
+    empty[k[keep].long()] = False
+
+    def on_card(t):
+        if case != "unaligned":
+            return t.to(cuda)
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        view = flat[1:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16
+        return view
+
+    ck, cp = on_card(k), on_card(payload)
+    torch.full((1 << 22,), 7.0, device=cuda)  # non-zero bytes in the allocator's cache
+    before = wrapper.launches
+    got = wrapper(ck, cp, n_rows)
+    again = wrapper(ck, cp, n_rows)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 2
+    assert got.shape == (n_rows, f) and got.dtype == torch.float32
+    assert torch.equal(got, again)
+    got = got.cpu()
+    assert (got[empty] == 0).all()
+    assert (got - ref).abs().max() <= 1e-5 * ref.abs().max() + 1e-7
 
 
 def _sorted_streams(n_levels, m, n_rows, f, seed, pad=256):
@@ -148,6 +236,18 @@ def test_sorted_kernels_match_plain_versions(cuda, kernel, f):
         assert (g - r).abs().max() <= 1e-5 * r.abs().max() + 1e-7
 
 
+def test_planar_entry_drops_wide_indices(cuda):
+    """int64 indices outside int32 (and negative ones) reach kernel 4 as
+    keys that match no row, as the plain version drops them."""
+    n_rows = 1024
+    idx = torch.tensor([-(2**40), -1, 0, 0, 7, 1023, 1024, 2**32 + 5, 2**40])
+    vals = torch.arange(2.0 * idx.shape[0]).reshape(2, -1)
+    ref = segment_tile.sorted_segment_sum_tiles(idx, vals, n_rows)
+    got = segment_tile.sorted_segment_sum_tiles(idx.to(cuda), vals.to(cuda), n_rows).cpu()
+    assert torch.equal(got, ref)
+    assert int((got != 0).any(-1).sum()) == 3
+
+
 def test_sorted_kernels_write_every_row(cuda):
     """Rows without updates come out exactly 0.0; the padding is never read."""
     n_rows, m = 1024, 1 << 12
@@ -170,10 +270,13 @@ def test_sorted_wrappers_check_their_inputs(cuda):
     with pytest.raises(ValueError):  # levels disagree
         segment_tile.segment_sum_packed_rows(
             bounds, torch.zeros((3, 1, 8), dtype=torch.int32, device=cuda))
-    with pytest.raises(ValueError):
-        segment_tile.segment_sum_planar_rows(bounds, torch.zeros((2, 8), device=cuda))
+    keys = torch.zeros(8, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):  # keys are one stream
+        segment_tile.segment_sum_planar_rows(bounds, torch.zeros((2, 8), device=cuda), 4)
+    with pytest.raises(ValueError):  # (F, M), not (M, F)
+        segment_tile.segment_sum_planar_rows(keys, torch.zeros((8, 2), device=cuda), 4)
     with pytest.raises(ValueError):  # CPU tensors never reach a kernel
-        segment_tile.segment_sum_planar_rows(bounds[0].cpu(), torch.zeros((2, 8)))
+        segment_tile.segment_sum_planar_rows(keys.cpu(), torch.zeros((2, 8)), 4)
 
 
 @pytest.mark.parametrize("method", ["auto", "sorttile", "sort"])

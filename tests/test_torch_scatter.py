@@ -228,8 +228,10 @@ def test_row_block_must_divide_the_rows():
     ("segment_sum_planar_rows", torch.zeros((2, 4))),
 ])
 def test_kernel_wrappers_reject_cpu_tensors(wrapper, payload):
-    bounds = torch.zeros((1, 3) if payload.dim() == 3 else (3,), dtype=torch.int32)
     before = getattr(segment_tile, wrapper).launches
     with pytest.raises(ValueError):
-        getattr(segment_tile, wrapper)(bounds, payload)
+        if payload.dim() == 3:  # row body: (L, n_rows + 1) bounds
+            getattr(segment_tile, wrapper)(torch.zeros((1, 3), dtype=torch.int32), payload)
+        else:  # stream body: (M,) keys and n_rows
+            getattr(segment_tile, wrapper)(torch.zeros(4, dtype=torch.int32), payload, 2)
     assert getattr(segment_tile, wrapper).launches == before

@@ -77,13 +77,14 @@ def test_cpu_wrapper_takes_plain_version_and_empty_rows_are_zero():
 
 
 def test_sort_updates_bounds_and_order():
-    """The global-row sort the kernel consumes: bounds delimit each row's
-    updates, equal keys keep input order (stable)."""
+    """The global-row sort the kernel consumes: int32 keys (level offset +
+    index) ascending, so each row's updates are one run of equal keys, and
+    equal keys keep input order (stable)."""
     sizes = [4, 3]
     idx = [torch.tensor([2, 0, 2, 3]), torch.tensor([1, 1, 0, 2])]
     upd = [torch.arange(8.0).reshape(4, 2), 10 + torch.arange(8.0).reshape(4, 2)]
-    bounds, payload = segment_tile.sort_updates(idx, upd, sizes)
-    assert bounds.dtype == torch.int32 and bounds.tolist() == [0, 1, 1, 3, 4, 5, 7, 8]
+    keys, payload = segment_tile.sort_updates(idx, upd, sizes)
+    assert keys.dtype == torch.int32 and keys.tolist() == [0, 2, 2, 3, 4, 5, 5, 6]
     assert payload.dtype == torch.bfloat16
     assert payload[:, 0].float().tolist() == [2.0, 0.0, 4.0, 6.0, 14.0, 10.0, 12.0, 16.0]
 
@@ -104,8 +105,9 @@ def test_kernel_module_imports_without_building():
 
 
 def test_kernel_wrapper_rejects_cpu_tensors():
+    before = segment_tile.segment_sum_rows.launches
     with pytest.raises(ValueError):
         segment_tile.segment_sum_rows(
-            torch.zeros(2, dtype=torch.int32), torch.zeros((1, 2), dtype=torch.bfloat16)
+            torch.zeros(1, dtype=torch.int32), torch.zeros((1, 2), dtype=torch.bfloat16), 2
         )
-
+    assert segment_tile.segment_sum_rows.launches == before
