@@ -192,18 +192,29 @@ def sort_and_pad(torch, st, idx, upd):
 
 def kernel_phase_sorted(torch, st, cfg, f: int) -> dict:
     """Kernels 2, 3 and 4 against their plain versions on the same sorted
-    inputs, with their times.  Bytes counted: each real update's payload
-    read once (the padding is never read), for kernels 2 and 3 the (n_rows
-    + 1) int32 row bounds of each level, for kernel 4 its int32 keys, each
-    fp32 output row written once; operations: one fp32 add per update and
-    channel.  ``library_ms``: per-level ``index_add_`` of the same
-    (rounded) payload into an fp32 table."""
+    inputs, with their times.  Bytes counted: for kernels 2 and 3 each
+    level's Mp int32 keys (the padding included: the kernel reads keys to
+    find where a level's updates end) and its M real updates' payload, for
+    kernel 4 its M int32 keys and payload, each fp32 output row written
+    once; operations: one fp32 add per update and channel.  ``library_ms``:
+    per-level ``index_add_`` of the same (rounded) payload into an fp32
+    table; ``entry_ms`` (kernels 2 and 3): the entry point from sorted
+    inputs, whatever runs in front of its kernel."""
     idx, upd, n_rows = sorted_streams(torch, cfg, f, seed=20 + f)
     n_levels, m, _ = upd.shape
     idx_p, upd_p = sort_and_pad(torch, st, idx, upd)
-    bounds = st.row_bounds(idx_p, n_rows)
+    m_pad = idx_p.shape[1]
+    vals = upd_p.transpose(1, 2).contiguous()  # (L, F, Mp)
+    packed = st.pack_bf16_pairs(upd_p.reshape(-1, f)).reshape(n_levels, m_pad, -1)
+    packed = packed.transpose(1, 2).contiguous()  # (L, P, Mp)
+    entries = {
+        "segment_sum_packed_rows": lambda: st.sorted_segment_sum_tiles_packed(
+            idx_p, packed, n_rows),
+        "segment_sum_batched_rows": lambda: st.sorted_segment_sum_tiles_batched(
+            idx_p, vals, n_rows),
+    }
     idx_real = idx_p[:, :m].long()
-    out_bytes = n_levels * ((n_rows + 1) * 4 + n_rows * f * 4)
+    out_bytes = n_levels * (m_pad * 4 + n_rows * f * 4)
     records = {}
 
     def library_for(vals_planar):  # (L, F, M) fp32, the payload as summed
@@ -214,30 +225,26 @@ def kernel_phase_sorted(torch, st, cfg, f: int) -> dict:
         return run
 
     # Kernel 3: fp32 planar, rounded to bf16 on load.
-    vals = upd_p.transpose(1, 2).contiguous()  # (L, F, Mp)
     err = max_level_err(torch, "segment_sum_batched_rows",
-                        st.segment_sum_batched_rows(bounds, vals),
-                        st.segment_sum_batched_rows(bounds, vals),
+                        st.segment_sum_batched_rows(idx_p, vals, n_rows),
+                        st.segment_sum_batched_rows(idx_p, vals, n_rows),
                         st.sorted_segment_sum_tiles_batched_ref(idx_p, vals, n_rows))
     rounded = vals[:, :, :m].to(torch.bfloat16).float().contiguous()
     n_bytes = n_levels * m * 4 * f + out_bytes
     records["segment_sum_batched_rows"] = (err, n_bytes,
-                                           lambda: st.segment_sum_batched_rows(bounds, vals),
+                                           lambda: st.segment_sum_batched_rows(idx_p, vals, n_rows),
                                            lambda: st.sorted_segment_sum_tiles_batched_ref(
                                                idx_p, vals, n_rows),
                                            library_for(rounded))
 
     # Kernel 2: packed bf16 pairs.
-    p = (f + 1) // 2
-    packed = st.pack_bf16_pairs(upd_p.reshape(-1, f)).reshape(n_levels, -1, p)
-    packed = packed.transpose(1, 2).contiguous()  # (L, P, Mp)
     err = max_level_err(torch, "segment_sum_packed_rows",
-                        st.segment_sum_packed_rows(bounds, packed),
-                        st.segment_sum_packed_rows(bounds, packed),
+                        st.segment_sum_packed_rows(idx_p, packed, n_rows),
+                        st.segment_sum_packed_rows(idx_p, packed, n_rows),
                         st.sorted_segment_sum_tiles_packed_ref(idx_p, packed, n_rows))
-    n_bytes = n_levels * m * 4 * p + out_bytes
+    n_bytes = n_levels * m * 4 * packed.shape[1] + out_bytes
     records["segment_sum_packed_rows"] = (err, n_bytes,
-                                          lambda: st.segment_sum_packed_rows(bounds, packed),
+                                          lambda: st.segment_sum_packed_rows(idx_p, packed, n_rows),
                                           lambda: st.sorted_segment_sum_tiles_packed_ref(
                                               idx_p, packed, n_rows),
                                           library_for(rounded))
@@ -268,6 +275,8 @@ def kernel_phase_sorted(torch, st, cfg, f: int) -> dict:
             "library_ms": cuda_ms(torch, library, iters=5), "bound_ms": bound_ms,
             "bound_by": bound_by, "bytes": n_bytes,
         }
+        if name in entries:
+            out[name]["entry_ms"] = cuda_ms(torch, entries[name])
         if name == "segment_sum_planar_rows":  # 20 us calls: their device time too
             out[name]["held_ms"] = cuda_ms(torch, kernel, hold=True)
             out[name]["library_held_ms"] = cuda_ms(torch, library, iters=5, hold=True)
@@ -665,14 +674,14 @@ def main() -> int:
     del state, images, cams
     tb = testbed_phase(torch, st, cfg, hyper)
 
-    def entry(name, replaces, rec, rec_f8, launches):
+    def entry(name, replaces, rec, rec_f8, launches, extra=()):
+        f8_keys = ("max_abs_err", "kernel_ms", "plain_ms", "bound_ms", "library_ms", *extra)
         return {
             "name": name, "route": "cuda", "source": "neus2_tpu_torch/csrc/segment_sum.cu",
             "replaces": replaces, "launches": launches, "max_abs_err": rec["max_abs_err"],
             "ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
-            "f8": {k: rec_f8[k] for k in ("max_abs_err", "kernel_ms", "plain_ms", "bound_ms",
-                                          "library_ms")},
+            **{k: rec[k] for k in extra}, "f8": {k: rec_f8[k] for k in f8_keys},
         }
 
     kernels = [
@@ -681,16 +690,16 @@ def main() -> int:
          "sort_ms": k1["sort_ms"], "launches_per_step": tb["launches_per_step"],
          "train_static_launches": train["launches"]},
     ] + [
-        entry(name, replaces, sorted_k[name], sorted_f8[name], ops["launches"][name])
+        entry(name, replaces, sorted_k[name], sorted_f8[name], ops["launches"][name],
+              extra=("entry_ms",))
         for name, replaces in (
             ("segment_sum_packed_rows", "neus2_tpu/ops/segment_tile.py:376"),
             ("segment_sum_batched_rows", "neus2_tpu/ops/segment_tile.py:211"),
         )
     ] + [
-        {**entry("segment_sum_planar_rows", "neus2_tpu/ops/segment_tile.py:75",
-                 sorted_k["segment_sum_planar_rows"], sorted_f8["segment_sum_planar_rows"],
-                 ops["launches"]["segment_sum_planar_rows"]),
-         **{k: sorted_k["segment_sum_planar_rows"][k] for k in ("held_ms", "library_held_ms")}},
+        entry("segment_sum_planar_rows", "neus2_tpu/ops/segment_tile.py:75",
+              sorted_k["segment_sum_planar_rows"], sorted_f8["segment_sum_planar_rows"],
+              ops["launches"]["segment_sum_planar_rows"], extra=("held_ms", "library_held_ms")),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,55 +3,71 @@
 // Replaces the four TPU kernels of neus2_tpu/ops/segment_tile.py.  Each
 // computes, for every row r of every level l of a sorted update stream,
 //
-//     out[l, r, f] = sum of payload[l, f, m] over the updates m whose index is r,
+//     out[l, r, f] = sum of payload[l, f, m] over the updates m whose key is r,
 //
-// in fp32.  They differ in how the payload is stored and rounded and in how
-// many streams they take, and this file has TWO kernel bodies, each
+// in fp32.  They differ only in how the payload is stored and rounded, so
+// ONE kernel body (stream_sum_kernel and its fixup pass) serves all four,
 // templated on a payload loader:
 //
-//   entry point (extern "C")  body    loader        TPU kernel it replaces
-//   segment_sum_rows          stream  Bf16Rows      _packed_kernel (:376) via
-//                                                   sorted_segment_sum_tiles_packed_planar
-//   segment_sum_planar        stream  Planar<false> _tile_kernel (:75)
-//   segment_sum_packed        row     PackedPairs   _packed_kernel (:376) via
-//                                                   sorted_segment_sum_tiles_packed
-//   segment_sum_batched       row     Planar<true>  _batched_kernel (:211)
+//   entry point (extern "C")  loader         TPU kernel it replaces
+//   segment_sum_rows          Bf16Rows       _packed_kernel (:376) via
+//                                            sorted_segment_sum_tiles_packed_planar
+//   segment_sum_planar        Planar<false>  _tile_kernel (:75)
+//   segment_sum_packed        PackedPairs    _packed_kernel (:376) via
+//                                            sorted_segment_sum_tiles_packed
+//   segment_sum_batched       Planar<true>   _batched_kernel (:211)
 //
 //   * Bf16Rows: (M, F) bf16 rows, all levels in one stream sorted by a
 //     global row key (the hash-grid backward's layout, ops/segment_tile.py).
 //   * Planar<false>: (F, M) fp32, summed exactly in fp32 (one level).
-//   * PackedPairs: (L, P, Mp) int32, each int32 two bf16 channels (channel
-//     2k in the low half, 2k+1 in the high half), split in registers.
-//   * Planar<true>: (L, F, Mp) fp32, each value rounded to bf16 on load, as
-//     the TPU kernel rounds its matmul operand (segment_tile.py:246-249).
+//   * PackedPairs: (L, F / 2, Mp) int32, each int32 two bf16 channels
+//     (channel 2k in the low half, 2k + 1 in the high half), split in
+//     registers.
+//   * Planar<true>: (L, F, Mp) fp32, each value rounded to bf16 on load (to
+//     nearest even), as the TPU kernel rounds its matmul operand
+//     (segment_tile.py:246-249).
 //
-// What bounds every variant on the card is memory traffic: each update's key
-// and payload read once, each fp32 output row written once.  No floating-point
-// atomics anywhere: a row's summation order depends only on the sorted stream,
-// so two launches on one input agree bit for bit (docs/MIGRATING.md:90), and
-// every row is written (a row without updates is exactly 0.0, which the
-// optimizer's lazy skip keys off).  None of the TPU kernels' one-hot matmuls
-// or DMA windows carry over: they were TPU constraints, and on this card there
-// is no capacity limit either (the TPU _tile_kernel silently drops a tile's
-// updates past its DMA window).
+// Every entry point takes L sorted int32 key streams of Mp keys each, (L,
+// Mp) row-major (L = 1 for kernels 1 and 4), and writes (L, n_rows, F)
+// fp32.  What bounds every variant on the card is memory traffic: each
+// key and payload word read once, each fp32 output row written once.  No
+// floating-point atomics anywhere: a row's summation order depends only on
+// the sorted stream, so two launches on one input agree bit for bit
+// (docs/MIGRATING.md:90), and every row is written (a row without updates
+// is exactly 0.0, which the optimizer's lazy skip keys off).  None of the
+// TPU kernels' one-hot matmuls or DMA windows carry over: they were TPU
+// constraints, and on this card there is no capacity limit either (the TPU
+// _tile_kernel silently drops a tile's updates past its DMA window).
 //
-// The stream body (kernels 1 and 4): a load-balanced reduce-by-key over ONE
-// sorted (M,) int32 key stream; it reads the keys itself, so no row bounds
-// are computed in front of it.  Each block takes a tile of consecutive
-// updates (2,048 at F = 2, 1,024 at F = 8), each thread a run of 8 (4) of
+// The body: a load-balanced reduce-by-key over each sorted key stream; it
+// reads the keys itself, so no row bounds are computed in front of it.
+// Each level's stream is cut into tiles of consecutive updates (2,048 at
+// F = 2, 1,024 at F = 8), one block a tile, each thread a run of 8 (4) of
 // them, read in 16-byte vector loads (keys as int4, bf16 rows as uint4,
-// planar fp32 channels as float4; scalar loads where a base pointer or a
-// planar channel row is not 16-byte aligned, and on the ragged last run).
-// Work per block is the same whatever the row lengths: a 4-update hashed row
-// and a 4,096-update dense row cost the same per byte.  A head is key[m] !=
-// key[m-1].  Each thread sums its run serially, a segmented warp scan
-// (__shfl_up_sync over head flags) and a carry through shared memory in warp
-// order give every thread the partial sum entering its run, and the thread
-// holding a row's last update writes the row.  A row that crosses a tile
-// boundary is finished by a second small pass (stream_fixup_kernel): the
-// tile holding the row's head adds, in tile order, the partials that the
-// following tiles recorded for it, however many tiles the row spans.  Keys
-// outside [0, n_rows) (the PAD_IDX tail, anything negative) match no row.
+// planar fp32 channels as float4, packed pairs as uint4; scalar loads where
+// a base pointer or a level's or planar channel's row is not 16-byte
+// aligned, and on the ragged last run).  Work per block is the same
+// whatever the row lengths: a 4-update hashed row and a 4,096-update dense
+// row cost the same per byte.  A head is key[m] != key[m-1].  Each thread
+// sums its run serially, a segmented warp scan (__shfl_up_sync over head
+// flags) and a carry through shared memory in warp order give every thread
+// the partial sum entering its run, and the thread holding a row's last
+// update writes the row.  A row that crosses a tile boundary is finished by
+// a second small pass (stream_fixup_kernel): the tile holding the row's head
+// adds, in tile order, the partials that the following tiles recorded for
+// it, however many tiles the row spans.
+//
+// Levels: block b is tile b % T of level b / T, with T tiles a level, so a
+// tile never spans two levels; its keys, payload and output are the
+// level's, its level's first tile has no previous key and its last tile
+// owns the rows up to the level's n_rows - 1.  A level's last update always
+// ends its row, so the fixup pass never carries a row into the next level.
+//
+// Keys outside [0, n_rows) (the PAD_IDX tail of the JAX layout, anything
+// negative) match no row.  The body reads their keys and payload (it cannot
+// know where a stream's real updates end without them), but a key change is
+// a head, so they sum into segments of their own that are never stored:
+// nothing of the padding reaches a row.
 //
 // Empty rows: each tile owns the rows between the last key of the tile
 // before it and its own last key and writes every one of them.  At F = 2 it
@@ -60,16 +76,8 @@
 // where a gap makes the range longer than a tile, it zeroes the range in
 // place before its sums land on it.  The alternative, one cudaMemsetAsync of
 // the whole output and then only the sums, writes the rows twice and took
-// 6-21% longer for both kernels at both widths on an H100 80GB HBM3 at
+// 6-21% longer for kernels 1 and 4 at both widths on an H100 80GB HBM3 at
 // 700 W (PERF.md).
-//
-// The row body (kernels 2 and 3, L streams with (L, n_rows + 1) int32 row
-// bounds from torch.searchsorted): one warp per output row; lanes stride the
-// row's contiguous slice (coalesced), each lane accumulates in registers, and
-// a fixed shuffle tree reduces the 32 partial sums.  The 2^31 - 1 padding of
-// the TPU layout falls past the last bound and is never read.  Rows of hashed
-// levels hold ~4 updates, so most lanes of a warp idle there: these two are
-// the next to move to the stream body.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -77,15 +85,14 @@
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;  // row body
 constexpr int kStreamThreads = 256;
 constexpr int kStreamWarps = kStreamThreads / 32;
-// The stream body's shape at F channels: kItems consecutive updates a
-// thread (fewer at F = 8, so that a run's payload stays in registers), at
-// least kMinBlocks blocks resident on an SM (the fastest of 1-6 when timed
-// on the H100), and the output rows staged in shared memory when a row is
-// narrower than a 32-byte sector (F = 2), so that they reach L2 as whole
-// sectors; an F = 8 row is a whole sector already.
+// The body's shape at F channels: kItems consecutive updates a thread
+// (fewer at F = 8, so that a run's payload stays in registers), at least
+// kMinBlocks blocks resident on an SM (the fastest of 1-6 when timed on the
+// H100), and the output rows staged in shared memory when a row is narrower
+// than a 32-byte sector (F = 2), so that they reach L2 as whole sectors; an
+// F = 8 row is a whole sector already.
 template <int F>
 struct Stream {
   static constexpr int kItems = F >= 8 ? 4 : 8;
@@ -96,18 +103,18 @@ struct Stream {
 constexpr int kHasHead = 1;  // tile flag: some row begins inside the tile
 constexpr int kOpenOut = 2;  // tile flag: its last row goes on into the next tile
 
-__device__ __forceinline__ float bf16_bits_to_float(uint32_t bits16) {
-  return __uint_as_float(bits16 << 16);
-}
-
 __host__ __device__ __forceinline__ bool is_aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
+// Each loader reads one level's payload: at_level(l) (loaders of kernels 2
+// and 3) moves it to level l, fetch() loads a thread's run of kItems
+// updates as stored, unpack() widens them to fp32 once they are needed, so
+// a load in flight holds no instruction up.  aligned(m) says whether every
+// run of a stream of m updates a level starts on 16 bytes (given the run
+// and tile shape).
+
 // (M, F) bf16 rows of one stream (the caller folds levels into global rows).
-// fetch() loads a thread's run of kItems rows as stored (bf16 pairs); unpack()
-// widens them to fp32 once they are needed, so a load in flight holds no
-// instruction up.
 template <int F>
 struct Bf16Rows {
   const __nv_bfloat16* upd;
@@ -146,43 +153,73 @@ struct Bf16Rows {
   }
 };
 
-// (L, F / 2, Mp) int32 of packed bf16 pairs (row body).
+// (L, F / 2, Mp) int32 of packed bf16 pairs: pair k of level l is the
+// planar row (l * F / 2 + k) * Mp.  The halves are split in registers,
+// exactly (a bf16 widens to fp32 without rounding).
 template <int F>
 struct PackedPairs {
+  static constexpr int P = F / 2;
   const uint32_t* packed;
   int64_t m_pad;
-  __device__ __forceinline__ void add(int64_t level, int64_t m, float (&acc)[F]) const {
-    constexpr int P = F / 2;
+  template <int kItems>
+  struct Raw {
+    uint32_t w[P][kItems];
+  };
+  __device__ __forceinline__ PackedPairs at_level(int64_t l) const {
+    return {packed + l * P * m_pad, m_pad};
+  }
+  // Pair k's run starts at k * Mp + m0: 16-byte aligned for every k only
+  // if Mp is a multiple of 4.
+  __host__ __device__ bool aligned(int64_t m) const { return is_aligned16(packed) && m % 4 == 0; }
+  template <int kItems>
+  __device__ __forceinline__ void fetch(int64_t m0, int cnt, bool vec, Raw<kItems>& r) const {
+    static_assert(kItems % 4 == 0, "a pair's run is a whole number of uint4");
 #pragma unroll
     for (int k = 0; k < P; ++k) {
-      const uint32_t w = packed[(level * P + k) * m_pad + m];
-      acc[2 * k] += bf16_bits_to_float(w & 0xffffu);
-      acc[2 * k + 1] += bf16_bits_to_float(w >> 16);
+      const uint32_t* src = packed + k * m_pad + m0;
+      if (vec && cnt == kItems) {
+#pragma unroll
+        for (int q = 0; q < kItems / 4; ++q) {
+          const uint4 x = __ldcs(reinterpret_cast<const uint4*>(src) + q);
+          r.w[k][4 * q] = x.x; r.w[k][4 * q + 1] = x.y;
+          r.w[k][4 * q + 2] = x.z; r.w[k][4 * q + 3] = x.w;
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < kItems; ++i) r.w[k][i] = i < cnt ? src[i] : 0u;
+      }
     }
+  }
+  template <int kItems>
+  __device__ __forceinline__ void unpack(const Raw<kItems>& r, float (&v)[kItems][F]) const {
+#pragma unroll
+    for (int k = 0; k < P; ++k)
+#pragma unroll
+      for (int i = 0; i < kItems; ++i) {  // channel 2k in the low half
+        v[i][2 * k] = __uint_as_float(r.w[k][i] << 16);
+        v[i][2 * k + 1] = __uint_as_float(r.w[k][i] & 0xffff0000u);
+      }
   }
 };
 
-// (L, F, Mp) fp32, optionally rounded to bf16 (round to nearest even).  The
-// row body reads it with add(); the stream body, one level (L = 1, Mp = M),
-// with fetch() and unpack().
+// (L, F, Mp) fp32, optionally rounded to bf16 (round to nearest even).
 template <int F, bool kRoundBf16>
 struct Planar {
   const float* vals;
   int64_t m_pad;
-  __device__ __forceinline__ static float rounded(float v) {
-    return kRoundBf16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
-  }
-  __device__ __forceinline__ void add(int64_t level, int64_t m, float (&acc)[F]) const {
-#pragma unroll
-    for (int f = 0; f < F; ++f) acc[f] += rounded(vals[(level * F + f) * m_pad + m]);
-  }
-  // Channel f's run starts at f * M + m0: 16-byte aligned for every f only
-  // if M is a multiple of 4.
-  __host__ __device__ bool aligned(int64_t m) const { return is_aligned16(vals) && m % 4 == 0; }
   template <int kItems>
   struct Raw {
     float w[F][kItems];
   };
+  __device__ __forceinline__ static float rounded(float v) {
+    return kRoundBf16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
+  }
+  __device__ __forceinline__ Planar at_level(int64_t l) const {
+    return {vals + l * F * m_pad, m_pad};
+  }
+  // Channel f's run starts at f * Mp + m0: 16-byte aligned for every f only
+  // if Mp is a multiple of 4.
+  __host__ __device__ bool aligned(int64_t m) const { return is_aligned16(vals) && m % 4 == 0; }
   template <int kItems>
   __device__ __forceinline__ void fetch(int64_t m0, int cnt, bool vec, Raw<kItems>& r) const {
     static_assert(kItems % 4 == 0, "a channel's run is a whole number of float4");
@@ -211,58 +248,6 @@ struct Planar {
   }
 };
 
-// --- row body (kernels 2 and 3) ---------------------------------------------
-
-// One warp per (level, row): blockIdx.y is the level, so no warp divides to
-// find it.  out is (L, n_rows, F) row-major.
-template <int F, class Load>
-__global__ void __launch_bounds__(32 * kWarpsPerBlock)
-segment_sum_kernel(const int32_t* __restrict__ bounds, Load load,
-                   float* __restrict__ out, int64_t n_rows) {
-  const int64_t row =
-      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  // `row` is the same for all 32 lanes, so a warp leaves as a whole and the
-  // full-mask shuffles below always see every lane.
-  if (row >= n_rows) return;
-  const int64_t level = blockIdx.y;
-  const int32_t* b = bounds + level * (n_rows + 1) + row;
-  const int64_t begin = b[0];
-  const int64_t end = b[1];
-
-  float acc[F];
-#pragma unroll
-  for (int f = 0; f < F; ++f) acc[f] = 0.0f;
-  for (int64_t m = begin + lane; m < end; m += 32) load.add(level, m, acc);
-
-#pragma unroll
-  for (int f = 0; f < F; ++f) {
-#pragma unroll
-    for (int offset = 16; offset > 0; offset >>= 1)
-      acc[f] += __shfl_down_sync(0xffffffffu, acc[f], offset);
-  }
-  if (lane == 0) {
-    float* o = out + (level * n_rows + row) * F;
-#pragma unroll
-    for (int f = 0; f < F; ++f) o[f] = acc[f];
-  }
-}
-
-template <int F, class Load>
-int launch(const void* bounds, Load load, void* out, int64_t n_levels,
-           int64_t n_rows, void* stream) {
-  if (n_levels <= 0 || n_rows <= 0) return 0;
-  if (n_levels > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned int>((n_rows + kWarpsPerBlock - 1) / kWarpsPerBlock),
-                  static_cast<unsigned int>(n_levels));
-  segment_sum_kernel<F, Load>
-      <<<grid, 32 * kWarpsPerBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const int32_t*>(bounds), load, static_cast<float*>(out), n_rows);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// --- stream body (kernels 1 and 4) ------------------------------------------
-
 template <int F>
 __device__ __forceinline__ void store_row(float* __restrict__ out, int64_t row,
                                           const float (&s)[F]) {
@@ -283,7 +268,8 @@ __device__ __forceinline__ void store_row(float* __restrict__ out, int64_t row,
 }
 
 // out[a, b) = src[0, b - a) (zeros without src), by the whole block, in
-// float4 stores between scalar ends.
+// float4 stores between scalar ends; out is the whole (16-byte aligned)
+// output, and a later level's rows are offsets from it.
 __device__ __forceinline__ void write_floats(float* __restrict__ out, int64_t a, int64_t b,
                                              const float* src) {
   const auto at = [&](int64_t g) { return src ? src[g - a] : 0.0f; };
@@ -306,20 +292,23 @@ __device__ __forceinline__ int64_t clamp_row(int32_t key, int64_t n_rows) {
   return key < 0 ? -1 : (key < n_rows ? key : n_rows - 1);
 }
 
-// One block per tile of kTile updates.  The tile owns the output rows after
-// the last key of the tile before it, up to its own last key (the last tile:
-// up to the table's end), and writes all of them: staged in shared memory
-// and stored in one coalesced pass when kStageRows and they are at most
-// kTile rows, else zeroed in place before the sums land on them.  part is
-// (n_tiles, 2, F): [t, 0] the tile's share of a row begun in an earlier
-// tile, [t, 1] the share of its last row when that row goes on into the
-// next tile; flags (n_tiles,) says which (kHasHead, kOpenOut).  Only the
-// entries that stream_fixup_kernel reads are written.
-template <int F, class Load>
+// One block per tile of kTile updates of one level: block b is tile b %
+// n_tiles of level b / n_tiles, and keys (L, m), out (L, n_rows, F) and the
+// loader are moved to that level (kLevels: kernels 2 and 3; kernels 1 and 4
+// take one stream and compile without it).  The tile owns the output rows
+// after the last key of the tile before it, up to its own last key (the level's last
+// tile: up to the table's end), and writes all of them: staged in shared
+// memory and stored in one coalesced pass when kStageRows and they are at
+// most kTile rows, else zeroed in place before the sums land on them.  part
+// is (L * n_tiles, 2, F), indexed by b: [b, 0] the tile's share of a row
+// begun in an earlier tile, [b, 1] the share of its last row when that row
+// goes on into the next tile; flags (L * n_tiles,) says which (kHasHead,
+// kOpenOut).  Only the entries that stream_fixup_kernel reads are written.
+template <int F, class Load, bool kLevels>
 __global__ void __launch_bounds__(kStreamThreads, Stream<F>::kMinBlocks)
 stream_sum_kernel(const int32_t* __restrict__ keys, Load load, float* __restrict__ out,
                   float* __restrict__ part, int32_t* __restrict__ flags, int64_t m,
-                  int64_t n_rows, bool vec) {
+                  int64_t n_rows, unsigned int n_tiles, bool vec) {
   constexpr int kItems = Stream<F>::kItems;
   constexpr int64_t kTile = Stream<F>::kTile;
   __shared__ __align__(16) int32_t s_keys[kTile];
@@ -331,7 +320,15 @@ stream_sum_kernel(const int32_t* __restrict__ keys, Load load, float* __restrict
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int64_t tile = blockIdx.x;
+  const int64_t block = blockIdx.x;
+  const unsigned int level = kLevels ? blockIdx.x / n_tiles : 0;
+  const int64_t tile = kLevels ? blockIdx.x - level * n_tiles : blockIdx.x;
+  const int64_t last_tile = kLevels ? n_tiles - 1 : gridDim.x - 1;
+  const int64_t out0 = kLevels ? level * n_rows * F : 0;  // the level's first float of out
+  if constexpr (kLevels) keys += level * m;
+  const Load lv = [&] {
+    if constexpr (kLevels) return load.at_level(level); else return load;
+  }();
   const int64_t tile_start = tile * kTile;
   const int64_t tile_end = tile_start + kTile < m ? tile_start + kTile : m;
   const int n_tile = static_cast<int>(tile_end - tile_start);
@@ -354,7 +351,7 @@ stream_sum_kernel(const int32_t* __restrict__ keys, Load load, float* __restrict
   if (tid == 0) s_edge[0] = tile_start > 0 ? keys[tile_start - 1] : 0;
   if (tid == 1) s_edge[1] = tile_end < m ? keys[tile_end] : 0;
   typename Load::template Raw<kItems> raw;
-  load.template fetch<kItems>(m0, cnt, vec, raw);
+  lv.template fetch<kItems>(m0, cnt, vec, raw);
   if (cnt == kItems) {
 #pragma unroll
     for (int q = 0; q < kItems / 4; ++q)
@@ -377,16 +374,16 @@ stream_sum_kernel(const int32_t* __restrict__ keys, Load load, float* __restrict
   // aggregates below orders their zeros before the tile's sums.
   const int64_t lo = tile_start > 0 ? clamp_row(s_edge[0], n_rows) : -1;
   const int64_t hi =
-      tile + 1 == gridDim.x ? n_rows - 1 : clamp_row(s_keys[n_tile - 1], n_rows);
+      tile == last_tile ? n_rows - 1 : clamp_row(s_keys[n_tile - 1], n_rows);
   const bool staged = Stream<F>::kStageRows && hi - lo <= kTile;
   if (staged) {
     for (int e = tid; e < (hi - lo) * F; e += kStreamThreads) s_rows[e] = 0.0f;
   } else {
-    write_floats(out, (lo + 1) * F, (hi + 1) * F, nullptr);
+    write_floats(out, out0 + (lo + 1) * F, out0 + (hi + 1) * F, nullptr);
   }
 
   float v[kItems][F];
-  load.unpack(raw, v);
+  lv.unpack(raw, v);
   bool head[kItems];
 #pragma unroll
   for (int i = 0; i < kItems; ++i)
@@ -476,13 +473,13 @@ stream_sum_kernel(const int32_t* __restrict__ keys, Load load, float* __restrict
         if (!in_tile) {
           // The end of a row begun in an earlier tile: its share here.
 #pragma unroll
-          for (int f = 0; f < F; ++f) part[(tile * 2) * F + f] = carry[f];
+          for (int f = 0; f < F; ++f) part[(block * 2) * F + f] = carry[f];
         } else if (k[i] >= 0 && k[i] < n_rows) {  // a row in (lo, hi]
           if (staged) {
 #pragma unroll
             for (int f = 0; f < F; ++f) s_rows[(k[i] - lo - 1) * F + f] = carry[f];
           } else {
-            store_row<F>(out, k[i], carry);
+            store_row<F>(out + out0, k[i], carry);
           }
         }
       }
@@ -492,41 +489,47 @@ stream_sum_kernel(const int32_t* __restrict__ keys, Load load, float* __restrict
   // The tile's last run says how the tile meets the next one.
   if (cnt > 0 && r0 + cnt == n_tile) {
     if (!tail) {
-      // The last row goes on: its share is [t, 1] if it began here, else the
-      // whole tile belongs to a row begun earlier ([t, 0]).
-      float* dst = part + (tile * 2 + (in_tile ? 1 : 0)) * F;
+      // The last row goes on: its share is [b, 1] if it began here, else the
+      // whole tile belongs to a row begun earlier ([b, 0]).
+      float* dst = part + (block * 2 + (in_tile ? 1 : 0)) * F;
 #pragma unroll
       for (int f = 0; f < F; ++f) dst[f] = carry[f];
     }
-    flags[tile] = (in_tile ? kHasHead : 0) | (tail ? 0 : kOpenOut);
+    flags[block] = (in_tile ? kHasHead : 0) | (tail ? 0 : kOpenOut);
   }
 
   if (staged) {
     __syncthreads();
-    write_floats(out, (lo + 1) * F, (hi + 1) * F, s_rows);
+    write_floats(out, out0 + (lo + 1) * F, out0 + (hi + 1) * F, s_rows);
   }
 }
 
-// One thread per tile: a tile whose last row begins in it and goes on adds
-// the next tiles' shares of that row, in tile order, and writes the row.
+// One thread per tile of every level: a tile whose last row begins in it
+// and goes on adds the next tiles' shares of that row, in tile order, and
+// writes the row.  Only launched with n_tiles > 1 a level, so every tile is
+// non-empty and has its flag.
 template <int F>
 __global__ void __launch_bounds__(kStreamThreads)
 stream_fixup_kernel(const int32_t* __restrict__ keys, const float* __restrict__ part,
                     const int32_t* __restrict__ flags, float* __restrict__ out,
-                    int64_t n_tiles, int64_t n_rows) {
+                    int64_t n_blocks, int64_t n_tiles, int64_t m, int64_t n_rows) {
   const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= n_tiles || flags[t] != (kHasHead | kOpenOut)) return;
+  if (t >= n_blocks || flags[t] != (kHasHead | kOpenOut)) return;
+  const int64_t level = t / n_tiles;
+  const int64_t level_end = (level + 1) * n_tiles;
   float s[F];
 #pragma unroll
   for (int f = 0; f < F; ++f) s[f] = part[(t * 2 + 1) * F + f];
-  // The row ends in the first later tile that has a head or is not open.
-  for (int64_t u = t + 1; u < n_tiles; ++u) {
+  // The row ends in the first later tile that has a head or is not open;
+  // a level's last tile is never open, and the bound says so again.
+  for (int64_t u = t + 1; u < level_end; ++u) {
 #pragma unroll
     for (int f = 0; f < F; ++f) s[f] += part[(u * 2) * F + f];
     if (flags[u] != kOpenOut) break;
   }
-  const int32_t key = keys[(t + 1) * Stream<F>::kTile - 1];  // tile t is full: it has a successor
-  if (key >= 0 && key < n_rows) store_row<F>(out, key, s);
+  // Tile t is full: it has a successor in its level.
+  const int32_t key = keys[level * m + (t - level * n_tiles + 1) * Stream<F>::kTile - 1];
+  if (key >= 0 && key < n_rows) store_row<F>(out + level * n_rows * F, key, s);
 }
 
 template <int F>
@@ -535,26 +538,32 @@ int64_t stream_tiles(int64_t m) {
   return m > kTile ? (m + kTile - 1) / kTile : 1;
 }
 
-template <int F, class Load>
-int launch_stream(const void* keys, Load load, void* out, void* scratch, int64_t m,
-                  int64_t n_rows, void* stream) {
-  if (m < 0 || n_rows < 0 || n_rows > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  if (n_rows == 0) return 0;
+// kLevels: the entry point takes L streams (kernels 2 and 3); without it,
+// exactly one (kernels 1 and 4).
+template <int F, bool kLevels, class Load>
+int launch_stream(const void* keys, Load load, void* out, void* scratch, int64_t n_levels,
+                  int64_t m, int64_t n_rows, void* stream) {
+  if (n_levels < 0 || m < 0 || n_rows < 0 || n_rows > INT32_MAX || (!kLevels && n_levels > 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_levels == 0 || n_rows == 0) return 0;
   const auto s = static_cast<cudaStream_t>(stream);
   const int64_t n_tiles = stream_tiles<F>(m);
-  if (n_tiles > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_tiles > INT32_MAX / n_levels) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t n_blocks = n_levels * n_tiles;
   auto* part = static_cast<float*>(scratch);
-  auto* flags = reinterpret_cast<int32_t*>(part + n_tiles * 2 * F);
+  auto* flags = reinterpret_cast<int32_t*>(part + n_blocks * 2 * F);
   const auto* k = static_cast<const int32_t*>(keys);
   auto* o = static_cast<float*>(out);
-  const bool vec = is_aligned16(keys) && load.aligned(m);
-  stream_sum_kernel<F, Load><<<static_cast<unsigned int>(n_tiles), kStreamThreads, 0, s>>>(
-      k, load, o, part, flags, m, n_rows, vec);
+  // A later level's keys start 4 * l * m bytes in.
+  const bool vec = is_aligned16(keys) && (n_levels == 1 || m % 4 == 0) && load.aligned(m);
+  stream_sum_kernel<F, Load, kLevels>
+      <<<static_cast<unsigned int>(n_blocks), kStreamThreads, 0, s>>>(
+      k, load, o, part, flags, m, n_rows, static_cast<unsigned int>(n_tiles), vec);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_tiles == 1) return static_cast<int>(err);
   stream_fixup_kernel<F>
-      <<<static_cast<unsigned int>((n_tiles + kStreamThreads - 1) / kStreamThreads),
-         kStreamThreads, 0, s>>>(k, part, flags, o, n_tiles, n_rows);
+      <<<static_cast<unsigned int>((n_blocks + kStreamThreads - 1) / kStreamThreads),
+         kStreamThreads, 0, s>>>(k, part, flags, o, n_blocks, n_tiles, m, n_rows);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -563,64 +572,80 @@ constexpr int kBadWidth = static_cast<int>(cudaErrorInvalidValue);
 }  // namespace
 
 // Plain C entry points for ctypes.  Each launch returns a cudaError_t (0 =
-// launched).  F is 2 or 8 (configs/base.json and configs/l4f8.json).
+// launched).  F is 2 or 8 (configs/base.json and configs/l4f8.json).  All
+// four take keys (n_levels, m) int32, ascending within each level, the
+// payload of m updates a level, out (n_levels, n_rows, F) fp32, and the
+// per-tile scratch.
 
-// Bytes of per-tile scratch the stream entry points need for M updates of F
-// channels (the wrapper allocates it).
-extern "C" long long segment_sum_stream_scratch_bytes(long long m, int n_features) {
+// Bytes of per-tile scratch the entry points need for n_levels streams of
+// m updates of F channels (the wrapper allocates it).
+extern "C" long long segment_sum_stream_scratch_bytes(long long n_levels, long long m,
+                                                      int n_features) {
   const int64_t n_tiles = n_features == 8 ? stream_tiles<8>(m) : stream_tiles<2>(m);
-  return n_tiles * (2LL * n_features + 1) * 4;
+  return n_levels * n_tiles * (2LL * n_features + 1) * 4;
 }
 
-// Kernel 1: all levels in one global-row stream: keys (M,) int32 ascending,
-// upd (M, F) bf16 rows in key order; out (n_rows, F).
+// Kernel 1: all levels in one global-row stream (n_levels must be 1): upd
+// (m, F) bf16 rows in key order.
 extern "C" int segment_sum_rows(const void* keys, const void* upd, void* out, void* scratch,
-                                long long m, long long n_rows, int n_features,
-                                void* stream) {
+                                long long n_levels, long long n_rows, long long m,
+                                int n_features, void* stream) {
   const auto* u = static_cast<const __nv_bfloat16*>(upd);
   switch (n_features) {
-    case 2: return launch_stream<2>(keys, Bf16Rows<2>{u}, out, scratch, m, n_rows, stream);
-    case 8: return launch_stream<8>(keys, Bf16Rows<8>{u}, out, scratch, m, n_rows, stream);
+    case 2:
+      return launch_stream<2, false>(keys, Bf16Rows<2>{u},
+                                     out, scratch, n_levels, m, n_rows, stream);
+    case 8:
+      return launch_stream<8, false>(keys, Bf16Rows<8>{u},
+                                     out, scratch, n_levels, m, n_rows, stream);
     default: return kBadWidth;
   }
 }
 
-// Kernel 4: one level: keys (M,) int32 ascending, vals (F, M) fp32, exact;
-// out (n_rows, F).
+// Kernel 4: vals (F, m) fp32 of one stream (n_levels must be 1), exact.
 extern "C" int segment_sum_planar(const void* keys, const void* vals, void* out, void* scratch,
-                                  long long m, long long n_rows, int n_features,
-                                  void* stream) {
+                                  long long n_levels, long long n_rows, long long m,
+                                  int n_features, void* stream) {
   const auto* v = static_cast<const float*>(vals);
   switch (n_features) {
-    case 2: return launch_stream<2>(keys, Planar<2, false>{v, m}, out, scratch, m, n_rows, stream);
-    case 8: return launch_stream<8>(keys, Planar<8, false>{v, m}, out, scratch, m, n_rows, stream);
+    case 2:
+      return launch_stream<2, false>(keys, Planar<2, false>{v, m},
+                                     out, scratch, n_levels, m, n_rows, stream);
+    case 8:
+      return launch_stream<8, false>(keys, Planar<8, false>{v, m},
+                                     out, scratch, n_levels, m, n_rows, stream);
     default: return kBadWidth;
   }
 }
 
-// Kernel 2: packed (L, F/2, Mp) int32; bounds (L, n_rows + 1); out (L, n_rows, F).
-extern "C" int segment_sum_packed(const void* bounds, const void* packed,
-                                  void* out, long long n_levels,
-                                  long long n_rows, long long m_pad,
+// Kernel 2: packed (n_levels, F / 2, m) int32 bf16 pairs.
+extern "C" int segment_sum_packed(const void* keys, const void* packed, void* out, void* scratch,
+                                  long long n_levels, long long n_rows, long long m,
                                   int n_features, void* stream) {
   const auto* p = static_cast<const uint32_t*>(packed);
   switch (n_features) {
-    case 2: return launch<2>(bounds, PackedPairs<2>{p, m_pad}, out, n_levels, n_rows, stream);
-    case 8: return launch<8>(bounds, PackedPairs<8>{p, m_pad}, out, n_levels, n_rows, stream);
+    case 2:
+      return launch_stream<2, true>(keys, PackedPairs<2>{p, m},
+                                    out, scratch, n_levels, m, n_rows, stream);
+    case 8:
+      return launch_stream<8, true>(keys, PackedPairs<8>{p, m},
+                                    out, scratch, n_levels, m, n_rows, stream);
     default: return kBadWidth;
   }
 }
 
-// Kernel 3: fp32 (L, F, Mp) rounded to bf16 on load; bounds (L, n_rows + 1);
-// out (L, n_rows, F).
-extern "C" int segment_sum_batched(const void* bounds, const void* vals,
-                                   void* out, long long n_levels,
-                                   long long n_rows, long long m_pad,
+// Kernel 3: vals (n_levels, F, m) fp32, rounded to bf16 on load.
+extern "C" int segment_sum_batched(const void* keys, const void* vals, void* out, void* scratch,
+                                   long long n_levels, long long n_rows, long long m,
                                    int n_features, void* stream) {
   const auto* v = static_cast<const float*>(vals);
   switch (n_features) {
-    case 2: return launch<2>(bounds, Planar<2, true>{v, m_pad}, out, n_levels, n_rows, stream);
-    case 8: return launch<8>(bounds, Planar<8, true>{v, m_pad}, out, n_levels, n_rows, stream);
+    case 2:
+      return launch_stream<2, true>(keys, Planar<2, true>{v, m},
+                                    out, scratch, n_levels, m, n_rows, stream);
+    case 8:
+      return launch_stream<8, true>(keys, Planar<8, true>{v, m},
+                                    out, scratch, n_levels, m, n_rows, stream);
     default: return kBadWidth;
   }
 }

@@ -17,16 +17,16 @@ row_block`` check):
   4       sorted_segment_sum_tiles (_tile_kernel :75)   segment_sum_planar_rows  fp32, exact
 
 The sort stays outside the kernels, as in the JAX package (``lax.sort``
-there, a stable ``torch.sort`` here).  ``csrc/segment_sum.cu`` has two
-bodies.  Kernels 1 and 4 reduce ONE sorted int32 key stream and read the
-keys themselves: a load-balanced reduce-by-key over fixed tiles of
-consecutive updates (a segmented warp scan, a carry in tile order for rows
-that cross tiles), so no row bounds are computed in front of them.
-Kernels 2 and 3 take L streams and per-row bounds from
-``torch.searchsorted`` (``row_bounds``), one warp per row.  Every sum is
-taken in a fixed order, without atomics.  Bound on the H100: memory
-traffic (keys or bounds and payload in, fp32 rows out); PERF.md has the
-measured times.
+there, a stable ``torch.sort`` here).  ``csrc/segment_sum.cu`` has ONE
+body for all four kernels, templated on the payload loader: a
+load-balanced reduce-by-key over sorted int32 key streams that reads the
+keys itself (fixed tiles of consecutive updates, a segmented warp scan, a
+carry in tile order for rows that cross tiles), so no row bounds are
+computed in front of any kernel.  Every wrapper takes ``(keys_sorted,
+payload, n_rows)``: kernels 1 and 4 one (M,) stream, kernels 2 and 3 one
+stream a level, (L, Mp), each level its own tiles.  Every sum is taken in
+a fixed order, without atomics.  Bound on the H100: memory traffic (keys
+and payload in, fp32 rows out); PERF.md has the measured times.
 
 A CPU tensor takes the plain version (``*_ref``: ``index_add_`` in float64
 after the same bf16 rounding, none for kernel 4); a CUDA tensor launches
@@ -123,83 +123,58 @@ def segment_sum_all_levels_ref(idx_list, upd_list, sizes) -> list[torch.Tensor]:
 # --- kernel wrappers --------------------------------------------------------
 
 _PTR, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-_ARGTYPES = {
-    "segment_sum_rows": [_PTR, _PTR, _PTR, _PTR, _I64, _I64, _I32, _PTR],
-    "segment_sum_planar": [_PTR, _PTR, _PTR, _PTR, _I64, _I64, _I32, _PTR],
-    "segment_sum_packed": [_PTR, _PTR, _PTR, _I64, _I64, _I64, _I32, _PTR],
-    "segment_sum_batched": [_PTR, _PTR, _PTR, _I64, _I64, _I64, _I32, _PTR],
-    "segment_sum_stream_scratch_bytes": [_I64, _I32],
-}
+# Every launch entry: keys, payload, out, scratch, n_levels, n_rows, m, F, stream.
+_LAUNCH_ARGS = [_PTR, _PTR, _PTR, _PTR, _I64, _I64, _I64, _I32, _PTR]
 
 
 @functools.cache
 def _entry(name: str):
     fn = getattr(cuda_build.load("segment_sum"), name)
-    fn.argtypes = _ARGTYPES[name]
-    fn.restype = ctypes.c_longlong if name.endswith("_bytes") else ctypes.c_int
+    if name.endswith("_bytes"):
+        fn.argtypes, fn.restype = [_I64, _I64, _I32], ctypes.c_longlong
+    else:
+        fn.argtypes, fn.restype = _LAUNCH_ARGS, ctypes.c_int
     return fn
 
 
-def _check_payload(keys: torch.Tensor, payload: torch.Tensor, dtype, dim: int) -> None:
+@functools.lru_cache(maxsize=64)
+def _scratch_words(n_levels: int, m: int, f: int) -> int:
+    return _entry("segment_sum_stream_scratch_bytes")(n_levels, m, f) // 4
+
+
+def _launch(wrapper, entry: str, keys: torch.Tensor, payload: torch.Tensor, n_rows: int,
+            f: int, m: int, dtype, levels: bool) -> torch.Tensor:
+    """What every wrapper does: check the int32 keys ((M,) for one stream,
+    (L, M) for ``levels``) and the contiguous ``dtype`` payload of M
+    updates a stream (one dimension more than the keys), allocate the fp32
+    (n_rows, f) or (L, n_rows, f) output and the per-tile scratch, launch
+    ``entry`` on the current stream in one ctypes call and count the launch
+    in ``wrapper.launches``."""
+    rank = 2 if levels else 1
+    if keys.device.type != "cuda":
+        raise ValueError("the segment-sum kernels need tensors on a CUDA device")
+    if keys.dtype != torch.int32 or keys.dim() != rank or not keys.is_contiguous():
+        raise ValueError(f"keys must be a contiguous {rank}-D int32 tensor")
     if payload.device != keys.device:
-        raise ValueError("the keys or bounds and the payload must lie on one CUDA device")
-    if payload.dtype != dtype or payload.dim() != dim or not payload.is_contiguous():
-        raise ValueError(f"the payload must be a contiguous {dim}-D {dtype} tensor")
-
-
-def _check_features(f: int) -> None:
+        raise ValueError("the keys and the payload must lie on one CUDA device")
+    if payload.dtype != dtype or payload.dim() != rank + 1 or not payload.is_contiguous():
+        raise ValueError(f"the payload must be a contiguous {rank + 1}-D {dtype} tensor")
     if f not in _FEATURES:
         raise ValueError(f"features per level must be one of {_FEATURES}, got {f}")
-
-
-def _run(wrapper, entry: str, device: torch.device, *args) -> None:
-    rc = _entry(entry)(*args, torch.cuda.current_stream(device).cuda_stream)
+    if m != keys.shape[-1]:
+        raise ValueError(f"{keys.shape[-1]} keys a stream for a payload of {m} updates")
+    if levels and payload.shape[0] != keys.shape[0]:
+        raise ValueError("the keys and the payload disagree on the number of levels")
+    if not 0 <= n_rows < 2**31:
+        raise ValueError(f"n_rows must lie in [0, 2^31), got {n_rows}")
+    n_levels = keys.shape[0] if levels else 1
+    out = torch.empty((*keys.shape[:-1], n_rows, f), dtype=torch.float32, device=keys.device)
+    scratch = torch.empty(_scratch_words(n_levels, m, f), dtype=torch.int32, device=keys.device)
+    rc = _entry(entry)(keys.data_ptr(), payload.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                       n_levels, n_rows, m, f, torch.cuda.current_stream(keys.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{entry} launch failed: cudaError_t {rc}")
     wrapper.launches += 1
-
-
-def _launch_stream(wrapper, entry: str, keys: torch.Tensor, payload: torch.Tensor,
-                   n_rows: int, f: int, m: int, dtype) -> torch.Tensor:
-    """What the stream wrappers (kernels 1 and 4) do: check the (M,) int32
-    keys and the 2-D ``dtype`` payload of M updates, allocate the fp32
-    (n_rows, f) output and the per-tile scratch, launch ``entry`` on the
-    current stream and count the launch in ``wrapper.launches``."""
-    if keys.device.type != "cuda":
-        raise ValueError("the segment-sum kernels need tensors on a CUDA device")
-    if keys.dtype != torch.int32 or keys.dim() != 1 or not keys.is_contiguous():
-        raise ValueError("keys must be a contiguous 1-D int32 tensor")
-    _check_payload(keys, payload, dtype, 2)
-    _check_features(f)
-    if m != keys.shape[0]:
-        raise ValueError(f"{keys.shape[0]} keys for a payload of {m} updates")
-    if not 0 <= n_rows < 2**31:
-        raise ValueError(f"n_rows must lie in [0, 2^31), got {n_rows}")
-    out = torch.empty((n_rows, f), dtype=torch.float32, device=keys.device)
-    scratch = torch.empty(_entry("segment_sum_stream_scratch_bytes")(m, f) // 4,
-                          dtype=torch.int32, device=keys.device)
-    _run(wrapper, entry, keys.device, keys.data_ptr(), payload.data_ptr(), out.data_ptr(),
-         scratch.data_ptr(), m, n_rows, f)
-    return out
-
-
-def _launch_rows(wrapper, entry: str, bounds: torch.Tensor, payload: torch.Tensor, dtype,
-                 f: int, m_pad: int) -> torch.Tensor:
-    """What the row wrappers (kernels 2 and 3) do: check the (L, n_rows + 1)
-    int32 bounds and the 3-D ``dtype`` payload of L levels, allocate the
-    fp32 (L, n_rows, f) output, launch ``entry`` and count the launch."""
-    if bounds.device.type != "cuda":
-        raise ValueError("the segment-sum kernels need tensors on a CUDA device")
-    if bounds.dtype != torch.int32 or bounds.dim() != 2 or not bounds.is_contiguous():
-        raise ValueError("bounds must be a contiguous 2-D int32 tensor")
-    _check_payload(bounds, payload, dtype, 3)
-    if payload.shape[0] != bounds.shape[0]:
-        raise ValueError("bounds and payload disagree on the number of levels")
-    _check_features(f)
-    n_levels, n_rows = bounds.shape[0], bounds.shape[1] - 1
-    out = torch.empty((n_levels, n_rows, f), dtype=torch.float32, device=bounds.device)
-    _run(wrapper, entry, bounds.device, bounds.data_ptr(), payload.data_ptr(), out.data_ptr(),
-         n_levels, n_rows, m_pad, f)
     return out
 
 
@@ -207,8 +182,8 @@ def segment_sum_rows(keys_sorted: torch.Tensor, payload: torch.Tensor, n_rows: i
     """Kernel 1: (M,) ascending int32 keys and the (M, F) bf16 payload in
     key order -> (n_rows, F) fp32 row sums; keys outside [0, n_rows) match
     no row.  Counts its launches in ``segment_sum_rows.launches``."""
-    return _launch_stream(segment_sum_rows, "segment_sum_rows", keys_sorted, payload, n_rows,
-                          payload.shape[-1], payload.shape[0], torch.bfloat16)
+    return _launch(segment_sum_rows, "segment_sum_rows", keys_sorted, payload, n_rows,
+                   payload.shape[-1], payload.shape[0], torch.bfloat16, levels=False)
 
 
 def segment_sum_planar_rows(keys_sorted: torch.Tensor, vals: torch.Tensor,
@@ -216,24 +191,28 @@ def segment_sum_planar_rows(keys_sorted: torch.Tensor, vals: torch.Tensor,
     """Kernel 4: (M,) ascending int32 keys and (F, M) fp32 values, summed
     exactly -> (n_rows, F) fp32; keys outside [0, n_rows) match no row.
     Counts its launches in ``segment_sum_planar_rows.launches``."""
-    return _launch_stream(segment_sum_planar_rows, "segment_sum_planar", keys_sorted, vals,
-                          n_rows, vals.shape[0], vals.shape[-1], torch.float32)
+    return _launch(segment_sum_planar_rows, "segment_sum_planar", keys_sorted, vals, n_rows,
+                   vals.shape[0], vals.shape[-1], torch.float32, levels=False)
 
 
-def segment_sum_packed_rows(bounds: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
-    """Kernel 2: (L, n_rows + 1) int32 bounds and (L, P, Mp) int32 packed
-    bf16 pairs -> (L, n_rows, 2P) fp32.  Counts its launches in
+def segment_sum_packed_rows(keys_sorted: torch.Tensor, packed: torch.Tensor,
+                            n_rows: int) -> torch.Tensor:
+    """Kernel 2: (L, Mp) int32 keys, ascending within each level, and (L, P,
+    Mp) int32 packed bf16 pairs -> (L, n_rows, 2P) fp32; keys outside [0,
+    n_rows) (the ``PAD_IDX`` tail) match no row.  Counts its launches in
     ``segment_sum_packed_rows.launches``."""
-    return _launch_rows(segment_sum_packed_rows, "segment_sum_packed", bounds, packed,
-                        torch.int32, 2 * packed.shape[-2], packed.shape[-1])
+    return _launch(segment_sum_packed_rows, "segment_sum_packed", keys_sorted, packed, n_rows,
+                   2 * packed.shape[-2], packed.shape[-1], torch.int32, levels=True)
 
 
-def segment_sum_batched_rows(bounds: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
-    """Kernel 3: (L, n_rows + 1) int32 bounds and (L, F, Mp) fp32 values,
-    rounded to bf16 on load -> (L, n_rows, F) fp32.  Counts its launches in
+def segment_sum_batched_rows(keys_sorted: torch.Tensor, vals: torch.Tensor,
+                             n_rows: int) -> torch.Tensor:
+    """Kernel 3: (L, Mp) int32 keys, ascending within each level, and (L, F,
+    Mp) fp32 values, rounded to bf16 on load -> (L, n_rows, F) fp32; keys
+    outside [0, n_rows) match no row.  Counts its launches in
     ``segment_sum_batched_rows.launches``."""
-    return _launch_rows(segment_sum_batched_rows, "segment_sum_batched", bounds, vals,
-                        torch.float32, vals.shape[-2], vals.shape[-1])
+    return _launch(segment_sum_batched_rows, "segment_sum_batched", keys_sorted, vals, n_rows,
+                   vals.shape[-2], vals.shape[-1], torch.float32, levels=True)
 
 
 for _wrapper in (segment_sum_rows, segment_sum_packed_rows, segment_sum_batched_rows,
@@ -245,15 +224,6 @@ KERNELS = (segment_sum_rows, segment_sum_packed_rows, segment_sum_batched_rows,
 
 
 # --- entry points -----------------------------------------------------------
-
-
-def row_bounds(idx_sorted: torch.Tensor, n_rows: int) -> torch.Tensor:
-    """(..., M) ascending indices -> (..., n_rows + 1) int32: row r of each
-    stream is [bounds[r], bounds[r + 1]); indices >= n_rows fall past the
-    last bound (kernels 2 and 3)."""
-    rows = torch.arange(n_rows + 1, dtype=idx_sorted.dtype, device=idx_sorted.device)
-    rows = rows.expand(idx_sorted.shape[:-1] + (n_rows + 1,)).contiguous()
-    return torch.searchsorted(idx_sorted.contiguous(), rows, out_int32=True)
 
 
 def _as_keys(idx_sorted: torch.Tensor, n_rows: int) -> torch.Tensor:
@@ -305,8 +275,8 @@ def sorted_segment_sum_tiles_batched(idx_sorted: torch.Tensor, vals_planar: torc
     _check_row_block(n_rows, row_block)
     if idx_sorted.device.type == "cpu":
         return sorted_segment_sum_tiles_batched_ref(idx_sorted, vals_planar, n_rows)
-    return segment_sum_batched_rows(row_bounds(idx_sorted, n_rows),
-                                    vals_planar.to(torch.float32).contiguous())
+    return segment_sum_batched_rows(_as_keys(idx_sorted, n_rows),
+                                    vals_planar.to(torch.float32).contiguous(), n_rows)
 
 
 def segment_sum_sorttile_batched(idx: torch.Tensor, upd: torch.Tensor, n_rows: int,
@@ -316,7 +286,7 @@ def segment_sum_sorttile_batched(idx: torch.Tensor, upd: torch.Tensor, n_rows: i
 
     ``pack=True`` carries the values through the sort as packed bf16 pairs,
     ``pack=False`` as fp32; either way kernel 3 sums bf16-rounded values.
-    No index padding is needed: the kernel reads exactly each row's slice."""
+    No index padding is needed: the kernel takes streams of any length."""
     n_levels, m, f = upd.shape
     idx_s, order = torch.sort(idx, dim=-1, stable=True)
     if pack:
@@ -338,7 +308,7 @@ def sorted_segment_sum_tiles_packed(idx_sorted: torch.Tensor, packed: torch.Tens
     _check_row_block(n_rows, row_block)
     if idx_sorted.device.type == "cpu":
         return sorted_segment_sum_tiles_packed_ref(idx_sorted, packed, n_rows)
-    return segment_sum_packed_rows(row_bounds(idx_sorted, n_rows), packed.contiguous())
+    return segment_sum_packed_rows(_as_keys(idx_sorted, n_rows), packed.contiguous(), n_rows)
 
 
 def sort_updates(idx_list, upd_list, sizes):

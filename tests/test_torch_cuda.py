@@ -1,6 +1,7 @@
 """The port's CUDA path on the card: the four segment-sum kernels against
-their plain versions (kernels 1 and 4 also on edge streams), the segment-sum op layer on the card against the
-CPU, and one training step on the card against the same step on the CPU.
+their plain versions and on edge streams, the segment-sum op layer on the
+card against the CPU, and one training step on the card against the same
+step on the CPU.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports neither JAX nor the JAX package, so it runs where they are absent;
@@ -148,28 +149,59 @@ def _edge_stream(case, f, seed):
     return keys, rng.normal(size=(keys.shape[0], f)).astype(np.float32), n_rows
 
 
+def _edge_levels(case, keys, vals, n_rows):
+    """Three levels around one edge stream: the case's, one of padding
+    only, and one row of three tiles and 100 updates; each padded with
+    PAD_IDX, and a payload of 1e30 that would show if it were summed, to
+    one Mp that is a multiple of 4 but for "ragged_length" and "unaligned"
+    -> (keys (3, Mp) int32, values (3, Mp, F) fp32)."""
+    f = vals.shape[1]
+    long_row = np.full(3 * _TILE + 100, min(3, n_rows - 1), np.int32)
+    streams = [(keys, vals), (keys[:0], vals[:0]),
+               (long_row, np.random.default_rng(7).normal(size=(long_row.shape[0], f)))]
+    m_pad = -(-max(k.shape[0] for k, _ in streams) // 4) * 4 + 4
+    m_pad += case in ("ragged_length", "unaligned")
+    out_k = np.full((3, m_pad), segment_tile.PAD_IDX, np.int32)
+    out_v = np.full((3, m_pad, f), 1e30, np.float32)
+    for lvl, (k, v) in enumerate(streams):
+        out_k[lvl, :k.shape[0]], out_v[lvl, :k.shape[0]] = k, v
+    return out_k, out_v
+
+
 @pytest.mark.parametrize("case", _EDGE_STREAMS)
 @pytest.mark.parametrize("f", [2, 8])
-@pytest.mark.parametrize("kernel", ["rows", "planar"])
+@pytest.mark.parametrize("kernel", ["rows", "planar", "packed", "batched"])
 def test_stream_kernels_on_edge_streams(cuda, kernel, f, case):
-    """Kernels 1 and 4 (the stream body): within 1e-5 * max|ref| + 1e-7 of a float64 sum of the same
-    payload over the keys in [0, n_rows), rows without updates exactly 0.0,
-    two launches bitwise equal."""
+    """All four kernels on the body's edge cases: every level within 1e-5
+    * max|ref| + 1e-7 of a float64 sum of the same payload (bf16-rounded
+    but for kernel 4) over the keys in [0, n_rows), rows without updates
+    exactly 0.0, two launches bitwise equal.  Kernels 1 and 4 take the
+    case's stream; kernels 2 and 3 take it as level 0 of ``_edge_levels``."""
     keys, vals, n_rows = _edge_stream(case, f, seed=f)
+    if kernel in ("packed", "batched"):
+        keys, vals = _edge_levels(case, keys, vals, n_rows)
     k = torch.from_numpy(keys)
+    v = torch.from_numpy(vals)
+    summed = (v if kernel == "planar" else v.to(torch.bfloat16)).double()
     if kernel == "rows":
-        payload = torch.from_numpy(vals).to(torch.bfloat16)  # (M, F)
-        summed = payload.double()
-        wrapper = segment_tile.segment_sum_rows
+        payload, wrapper = v.to(torch.bfloat16), segment_tile.segment_sum_rows  # (M, F)
+    elif kernel == "planar":
+        payload, wrapper = v.t().contiguous(), segment_tile.segment_sum_planar_rows  # (F, M)
+    elif kernel == "packed":
+        l, m_pad, _ = v.shape
+        payload = segment_tile.pack_bf16_pairs(v.reshape(l * m_pad, f))
+        payload = payload.reshape(l, m_pad, -1).transpose(1, 2).contiguous()  # (L, P, Mp)
+        wrapper = segment_tile.segment_sum_packed_rows
     else:
-        payload = torch.from_numpy(vals.T.copy())  # (F, M)
-        summed = torch.from_numpy(vals).double()
-        wrapper = segment_tile.segment_sum_planar_rows
-    keep = (k >= 0) & (k < n_rows)
-    ref = torch.zeros((n_rows, f), dtype=torch.float64)
-    ref = ref.index_add_(0, k[keep].long(), summed[keep]).float()
-    empty = torch.ones(n_rows, dtype=torch.bool)
-    empty[k[keep].long()] = False
+        payload, wrapper = v.transpose(1, 2).contiguous(), segment_tile.segment_sum_batched_rows
+    k_levels, summed = (k[None], summed[None]) if k.dim() == 1 else (k, summed)
+    ref = torch.zeros((k_levels.shape[0], n_rows, f), dtype=torch.float64)
+    empty = torch.ones((k_levels.shape[0], n_rows), dtype=torch.bool)
+    for lvl, (kl, sl) in enumerate(zip(k_levels, summed)):
+        keep = (kl >= 0) & (kl < n_rows)
+        ref[lvl].index_add_(0, kl[keep].long(), sl[keep])
+        empty[lvl, kl[keep].long()] = False
+    ref = ref.float()
 
     def on_card(t):
         if case != "unaligned":
@@ -187,11 +219,12 @@ def test_stream_kernels_on_edge_streams(cuda, kernel, f, case):
     again = wrapper(ck, cp, n_rows)
     torch.cuda.synchronize()
     assert wrapper.launches == before + 2
-    assert got.shape == (n_rows, f) and got.dtype == torch.float32
+    assert got.shape == (*k.shape[:-1], n_rows, f) and got.dtype == torch.float32
     assert torch.equal(got, again)
-    got = got.cpu()
-    assert (got[empty] == 0).all()
-    assert (got - ref).abs().max() <= 1e-5 * ref.abs().max() + 1e-7
+    got = got.cpu().reshape(ref.shape)
+    for g, r, e in zip(got, ref, empty):
+        assert (g[e] == 0).all()
+        assert (g - r).abs().max() <= 1e-5 * r.abs().max() + 1e-7
 
 
 def _sorted_streams(n_levels, m, n_rows, f, seed, pad=256):
@@ -207,9 +240,10 @@ def _sorted_streams(n_levels, m, n_rows, f, seed, pad=256):
 @pytest.mark.parametrize("f", [2, 8])
 @pytest.mark.parametrize("kernel", ["packed", "batched", "planar"])
 def test_sorted_kernels_match_plain_versions(cuda, kernel, f):
-    """Kernels 2, 3 and 4 through their entry points: bitwise repeatable,
-    within 1e-5 * max|ref| + 1e-7 of the plain version on the same inputs,
-    one launch per call."""
+    """Kernels 2, 3 and 4 through their entry points and their wrappers'
+    ``(keys_sorted, payload, n_rows)``: bitwise repeatable, within 1e-5 *
+    max|ref| + 1e-7 of the plain version on the same inputs, one launch per
+    call."""
     n_rows = 1 << 14
     idx, vals = _sorted_streams(3, 1 << 16, n_rows, f, seed=f)
     if kernel == "packed":
@@ -226,7 +260,7 @@ def test_sorted_kernels_match_plain_versions(cuda, kernel, f):
     ref = entry(idx, payload, n_rows)  # CPU tensors: the plain version
     before = wrapper.launches
     got = entry(idx.to(cuda), payload.to(cuda), n_rows)
-    again = entry(idx.to(cuda), payload.to(cuda), n_rows)
+    again = wrapper(idx.to(cuda), payload.to(cuda), n_rows)
     torch.cuda.synchronize()
     assert wrapper.launches == before + 2
     assert got.shape == ref.shape and got.dtype == torch.float32
@@ -249,7 +283,8 @@ def test_planar_entry_drops_wide_indices(cuda):
 
 
 def test_sorted_kernels_write_every_row(cuda):
-    """Rows without updates come out exactly 0.0; the padding is never read."""
+    """Rows without updates come out exactly 0.0; the padding's keys and
+    payload are read, but nothing of them reaches a row."""
     n_rows, m = 1024, 1 << 12
     idx = torch.cat([torch.full((m,), 5), torch.full((64,), segment_tile.PAD_IDX)])
     idx = idx.to(torch.int32)[None].repeat(2, 1)
@@ -262,21 +297,30 @@ def test_sorted_kernels_write_every_row(cuda):
 
 
 def test_sorted_wrappers_check_their_inputs(cuda):
-    bounds = torch.zeros((2, 5), dtype=torch.int32, device=cuda)
+    keys2 = torch.zeros((2, 8), dtype=torch.int32, device=cuda)  # (L, Mp)
+    keys = torch.zeros(8, dtype=torch.int32, device=cuda)
+    packed = torch.zeros((2, 1, 8), dtype=torch.int32, device=cuda)
+    before = [w.launches for w in segment_tile.KERNELS]
     with pytest.raises(ValueError):  # F = 4 is not built
-        segment_tile.segment_sum_batched_rows(bounds, torch.zeros((2, 4, 8), device=cuda))
-    with pytest.raises(ValueError):
-        segment_tile.segment_sum_packed_rows(bounds, torch.zeros((2, 1, 8), device=cuda))
+        segment_tile.segment_sum_batched_rows(keys2, torch.zeros((2, 4, 8), device=cuda), 4)
+    with pytest.raises(ValueError):  # packed pairs are int32
+        segment_tile.segment_sum_packed_rows(keys2, packed.float(), 4)
     with pytest.raises(ValueError):  # levels disagree
         segment_tile.segment_sum_packed_rows(
-            bounds, torch.zeros((3, 1, 8), dtype=torch.int32, device=cuda))
-    keys = torch.zeros(8, dtype=torch.int32, device=cuda)
+            keys2, torch.zeros((3, 1, 8), dtype=torch.int32, device=cuda), 4)
+    with pytest.raises(ValueError):  # a key for every update of a level
+        segment_tile.segment_sum_batched_rows(keys2, torch.zeros((2, 2, 7), device=cuda), 4)
+    with pytest.raises(ValueError):  # keys of the wrong rank: one stream a level
+        segment_tile.segment_sum_batched_rows(keys, torch.zeros((2, 2, 8), device=cuda), 4)
+    with pytest.raises(ValueError):
+        segment_tile.segment_sum_packed_rows(keys2[None], packed, 4)
     with pytest.raises(ValueError):  # keys are one stream
-        segment_tile.segment_sum_planar_rows(bounds, torch.zeros((2, 8), device=cuda), 4)
+        segment_tile.segment_sum_planar_rows(keys2, torch.zeros((2, 8), device=cuda), 4)
     with pytest.raises(ValueError):  # (F, M), not (M, F)
         segment_tile.segment_sum_planar_rows(keys, torch.zeros((8, 2), device=cuda), 4)
     with pytest.raises(ValueError):  # CPU tensors never reach a kernel
-        segment_tile.segment_sum_planar_rows(keys.cpu(), torch.zeros((2, 8)), 4)
+        segment_tile.segment_sum_packed_rows(keys2.cpu(), packed.cpu(), 4)
+    assert [w.launches for w in segment_tile.KERNELS] == before
 
 
 @pytest.mark.parametrize("method", ["auto", "sorttile", "sort"])

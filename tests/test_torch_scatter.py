@@ -228,10 +228,10 @@ def test_row_block_must_divide_the_rows():
     ("segment_sum_planar_rows", torch.zeros((2, 4))),
 ])
 def test_kernel_wrappers_reject_cpu_tensors(wrapper, payload):
+    """(keys, payload, n_rows) on the CPU: (L, Mp) keys and an (L, C, Mp)
+    payload for kernels 2 and 3, (M,) keys and (F, M) for kernel 4."""
     before = getattr(segment_tile, wrapper).launches
+    keys = torch.zeros(payload.shape[:-2] + (4,), dtype=torch.int32)
     with pytest.raises(ValueError):
-        if payload.dim() == 3:  # row body: (L, n_rows + 1) bounds
-            getattr(segment_tile, wrapper)(torch.zeros((1, 3), dtype=torch.int32), payload)
-        else:  # stream body: (M,) keys and n_rows
-            getattr(segment_tile, wrapper)(torch.zeros(4, dtype=torch.int32), payload, 2)
+        getattr(segment_tile, wrapper)(keys, payload, 2)
     assert getattr(segment_tile, wrapper).launches == before
