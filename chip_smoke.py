@@ -22,7 +22,12 @@ runs them, with the launch counts set to 0 just before and read just after:
   * ``testbed_phase``: the static Testbed at the same width, as a user
     runs it: load the scene, ``while tb.frame()``, render two held-out
     views at the eval protocol and score PSNR / SSIM, export the
-    marching-cubes mesh.
+    marching-cubes mesh;
+  * ``dynamic_phase``: the dynamic Testbed at the same width with the
+    error map and its sharpness weighting on, over a 3-frame scene of a
+    sphere moved by a known shift a frame: per-frame pose refinement (no
+    kernel-1 launch), then the finetune phase (one a step), a held-out
+    view scored per frame, the canonical mesh at the end.
 
 Exits non-zero on any failure; the last line of a successful run is the
 device JSON, the line before it the ``kernels`` JSON.
@@ -46,6 +51,15 @@ WARMUP_STEPS = 20
 PROFILE_STEPS = 20
 SCENE_RES = 256  # the synthetic scenes' image side
 TESTBED_STEPS = 200
+DYNAMIC_FRAMES = 3
+DYNAMIC_STEPS = 200  # first_frame_ and next_frame_max_training_step
+# The known per-frame motion: base.json's delta lr (1e-4 a step and DoF)
+# can cover it within a frame's 50 refinement steps.
+DYNAMIC_SHIFT = (0.005, 0.0, 0.0)
+# Traced windows of PROFILE_WINDOW steps from these frame-local steps: in
+# frames >= 1 one in pose refinement (steps 0-49) and one in finetune.
+DYNAMIC_PROFILE_AT = (10, 100)
+PROFILE_WINDOW = 8
 EVAL_SPP = 8
 MESH_RES = 256
 # The batched layouts' index padding past each level's M updates, as the
@@ -476,6 +490,186 @@ def testbed_phase(torch, st, cfg, hyper, steps: int = TESTBED_STEPS) -> dict:
     return out
 
 
+def dynamic_phase(torch, st, cfg, hyper) -> dict:
+    """The dynamic Testbed at full width, as a user drives it: base.json's
+    dynamic hyperparameters (pose refinement for 50 steps a frame, then
+    field and delta together) with the error map and its sharpness
+    weighting on, over ``DYNAMIC_FRAMES`` frames of 16 views at 256^2 in
+    which the sphere moves by ``DYNAMIC_SHIFT`` a frame; ``while
+    tb.frame()``, with ``on_frame_complete`` scoring one held-out view of
+    the frame at the eval protocol and its pose; the canonical mesh at the
+    end.  Times and kernel-1 launches per frame and phase ("frame0",
+    "refine", "finetune"): host ms a step on the host clock and the span a
+    step takes on the card between CUDA events around each ``frame()``
+    call (both paced by the host, which is the bottleneck), and device ms
+    a step, the card's busy time, from ``torch.profiler`` over windows of
+    ``PROFILE_WINDOW`` steps (``DYNAMIC_PROFILE_AT``).  Traced steps, steps
+    where the frame hook ran or the host fetched the scalars (every 16th),
+    and the first 3 of each frame and phase are left out of the host and
+    span times.
+
+    Fails on a non-finite loss or transform, on any kernel-1 launch in a
+    refinement step, on a step that trains the field without exactly one
+    launch, and on a frame >= 1 whose pose error (|learned transition -
+    true|) is not below the identity's (the error the frame would have if
+    its delta stayed the identity)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from neus2_tpu_torch.api import testbed as testbed_mod
+    from neus2_tpu_torch.data.synthetic import SPHERE_CENTER, make_moving_sphere_frames
+    from neus2_tpu_torch.data.synthetic import make_sphere_dataset
+    from neus2_tpu_torch.engine.render import RenderConfig, render_image
+    from neus2_tpu_torch.ops.image import psnr, srgb_eval_target, ssim
+
+    departures = {"use_error_map": True, "include_sharpness_in_error": True}
+    print("dynamic_phase departures from base.json: " + json.dumps(departures), flush=True)
+    cfg = dataclasses.replace(cfg, **departures)
+    hyper = dataclasses.replace(hyper, first_frame_max_training_step=DYNAMIC_STEPS,
+                                next_frame_max_training_step=DYNAMIC_STEPS)
+    shift = np.asarray(DYNAMIC_SHIFT, np.float32)
+    rebuilds = []
+    real_rebuild = testbed_mod.rebuild_error_cdf
+
+    def phase_of(tb):
+        k = tb.current_training_time_frame
+        return k, "frame0" if k == 0 else ("refine" if not tb.train_canonical else "finetune")
+
+    def counted_rebuild(state):
+        rebuilds.append(phase_of(tb))
+        return real_rebuild(state)
+
+    frames = []
+    hook_s = [0.0]
+
+    def on_frame_complete(tb, k):
+        t0 = time.perf_counter()
+        eff = tb.effective_acc
+        true_t = -k * shift  # the map back to frame 0: x -> x - k * shift
+        t_eff = eff["transition"].cpu().numpy()
+        t_id = tb.state.acc["transition"].cpu().numpy()  # this frame's delta at identity
+        rot = eff["rotation"].cpu().numpy()
+        angle = float(np.degrees(np.arccos(np.clip((np.trace(rot) - 1) / 2, -1, 1))))
+        held = make_sphere_dataset(n_views=2, resolution=SCENE_RES, seed=k + 1,
+                                   center=SPHERE_CENTER + k * shift)
+        images, cams = held.to_device("cuda")
+        rcfg = RenderConfig(field=tb.config.field, aabb_scale=tb.config.aabb_scale,
+                            min_transmittance=1e-4)
+        rgb, _, _ = render_image(tb.state.ema_params, eff, tb.state.occupancy, cams,
+                                 cams.poses[0], cams.focal[0], cams.principal[0],
+                                 torch.Generator(device="cuda").manual_seed(k), rcfg,
+                                 background=0.0, spp=EVAL_SPP)
+        target = srgb_eval_target(images[0])
+        rec = {"frame": k, "learned_transition": t_eff.tolist(),
+               "true_transition": true_t.tolist(),
+               "pose_error": float(np.linalg.norm(t_eff - true_t)),
+               "identity_pose_error": float(np.linalg.norm(t_id - true_t)),
+               "rotation_deg": angle, "psnr": float(psnr(rgb, target)),
+               "ssim": float(ssim(rgb, target)),
+               "black_psnr": float(psnr(torch.zeros_like(target), target)),
+               "finite": bool(np.isfinite(t_eff).all() and np.isfinite(rot).all()
+                              and torch.isfinite(rgb).all())}
+        frames.append(rec)
+        hook_s[0] += time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    tb = testbed_mod.Testbed(config=cfg, hyper=hyper, seed=0, device="cuda")
+    tb.load_training_data_from_datasets(make_moving_sphere_frames(
+        n_frames=DYNAMIC_FRAMES, translation_per_frame=DYNAMIC_SHIFT, n_views=16,
+        resolution=SCENE_RES))
+    tb.on_frame_complete = on_frame_complete
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+
+    # (frame, phase, launches, host s, start event, end event, left out, loss)
+    steps, traced, prof = [], {}, None
+    testbed_mod.rebuild_error_cdf = counted_rebuild
+    try:
+        torch.cuda.synchronize()
+        reset_launches(st)
+        while True:
+            if prof is None and tb.training_step in DYNAMIC_PROFILE_AT:
+                prof, prof_from = profile(activities=[ProfilerActivity.CPU,
+                                                      ProfilerActivity.CUDA]), len(steps)
+                prof.start()
+            n0, hooks0 = st.segment_sum_rows.launches, len(frames)
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            t0 = time.perf_counter()
+            if not tb.frame():
+                break
+            e1.record()
+            k, phase = phase_of(tb)
+            skip = (len(frames) != hooks0 or tb.training_step % 16 == 0
+                    or prof is not None)
+            steps.append((k, phase, st.segment_sum_rows.launches - n0,
+                          time.perf_counter() - t0, e0, e1, skip, tb.loss_scalar))
+            if prof is not None and len(steps) - prof_from == PROFILE_WINDOW:
+                torch.cuda.synchronize()
+                prof.stop()
+                top = [{"name": e.key[:60],
+                        "ms_per_step": e.self_device_time_total / 1e3 / PROFILE_WINDOW}
+                       for e in device_events(prof)[:5]]
+                traced.setdefault((k, phase), []).append(
+                    (device_ms_per_step(prof, PROFILE_WINDOW), top))
+                prof = None
+    finally:
+        testbed_mod.rebuild_error_cdf = real_rebuild
+    torch.cuda.synchronize()
+    launches = st.segment_sum_rows.launches
+
+    if len(steps) != DYNAMIC_FRAMES * DYNAMIC_STEPS or len(frames) != DYNAMIC_FRAMES:
+        raise AssertionError(f"dynamic: {len(steps)} steps, {len(frames)} frames done")
+    for i, (k, phase, n, *_rest, loss) in enumerate(steps):
+        if n != (0 if phase == "refine" else 1):
+            raise AssertionError(f"dynamic step {i} (frame {k}, {phase}): {n} kernel-1 launches")
+        if not (loss == loss and abs(loss) < 1e30):
+            raise AssertionError(f"dynamic step {i}: non-finite loss {loss}")
+    for rec in frames:
+        if not rec["finite"]:
+            raise AssertionError(f"dynamic frame {rec['frame']}: non-finite output {rec}")
+        if rec["frame"] >= 1 and not rec["pose_error"] < rec["identity_pose_error"]:
+            raise AssertionError(f"dynamic frame {rec['frame']}: pose error "
+                                 f"{rec['pose_error']} not below the identity's "
+                                 f"{rec['identity_pose_error']}")
+
+    by = {}
+    for k, phase, n, host_s, e0, e1, skip, _ in steps:
+        by.setdefault((k, phase), []).append((n, host_s, e0.elapsed_time(e1), skip))
+    table = []
+    for (k, phase), rows in by.items():
+        timed = [r for i, r in enumerate(rows) if i >= 3 and not r[3]]
+        device = traced.get((k, phase), [])
+        table.append({
+            "frame": k, "phase": phase, "steps": len(rows),
+            "kernel1_launches": sum(r[0] for r in rows),
+            "host_ms_per_step": 1e3 * sum(r[1] for r in timed) / len(timed),
+            "span_ms_per_step": sum(r[2] for r in timed) / len(timed),
+            "device_ms_per_step": (sum(d[0] for d in device) / len(device) if device
+                                   else None),
+            "device_traced_steps": PROFILE_WINDOW * len(device),
+            "top_device": device[0][1] if device else [],
+            "error_map_rebuilds": rebuilds.count((k, phase)),
+        })
+    with tempfile.TemporaryDirectory() as d:
+        verts, tris = tb.compute_and_save_marching_cubes_mesh(Path(d) / "mesh.obj",
+                                                              resolution=MESH_RES)
+    if len(tris) <= 1000:
+        raise AssertionError(f"dynamic: canonical mesh of {len(tris)} triangles")
+    phase_launches = {p: sum(r["kernel1_launches"] for r in table if r["phase"] == p)
+                      for p in ("frame0", "refine", "finetune")}
+    out = {
+        "frames": DYNAMIC_FRAMES, "steps_per_frame": DYNAMIC_STEPS, "shift": DYNAMIC_SHIFT,
+        "load_s": load_s, "launches": launches, "launches_by_phase": phase_launches,
+        "error_map_rebuilds": len(rebuilds), "error_map_res": tb.config.error_map_res,
+        "by_frame_and_phase": table, "per_frame": frames, "frame_hook_s": hook_s[0],
+        "mesh_triangles": int(len(tris)),
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    print("dynamic_phase " + json.dumps(out), flush=True)
+    return out
+
+
 def field_agrees_with_cpu(torch, cfg, n: int = 16384) -> dict:
     """The field and its gradients at full width on the card (through the
     segment-sum kernel) vs the same inputs on the CPU (exact scatter):
@@ -579,6 +773,22 @@ def training_phase(torch, tt, st, cfg, images, cams):
     return out, state
 
 
+def device_events(prof) -> list:
+    """The traced window's device-side events, largest device time first."""
+    from torch.autograd import DeviceType
+
+    return sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                  key=lambda e: e.self_device_time_total, reverse=True)
+
+
+def device_ms_per_step(prof, steps: int) -> float:
+    """The card's busy time a step over a traced window of ``steps``."""
+    ms = sum(e.self_device_time_total for e in device_events(prof)) / 1e3 / steps
+    if ms <= 0:
+        raise AssertionError("the profiler saw no device time in the traced window")
+    return ms
+
+
 def profile_phase(torch, tt, state, images, cams, cfg, steps: int = PROFILE_STEPS) -> dict:
     """Where the step's time goes, after the main path's counts are read:
     ``steps`` steps timed on the host clock without a log callback, then
@@ -602,14 +812,10 @@ def profile_phase(torch, tt, state, images, cams, cfg, steps: int = PROFILE_STEP
     if segment_sum_launches() - launches != 2 * steps:
         raise AssertionError(f"profile phase: {segment_sum_launches() - launches} kernel-1 "
                              f"launches in {2 * steps} steps")
-    events = prof.key_averages()
-    device = sorted((e for e in events if e.device_type == DeviceType.CUDA),
-                    key=lambda e: e.self_device_time_total, reverse=True)
-    host = sorted((e for e in events if e.device_type == DeviceType.CPU),
+    device = device_events(prof)
+    host = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CPU),
                   key=lambda e: e.self_cpu_time_total, reverse=True)
-    device_ms = sum(e.self_device_time_total for e in device) / 1e3 / steps
-    if device_ms <= 0:
-        raise AssertionError("the profiler saw no device time in the traced window")
+    device_ms = device_ms_per_step(prof, steps)
 
     def top(evs, attr, k):
         return [{"name": e.key[:80], "ms_per_step": getattr(e, attr) / 1e3 / steps,
@@ -673,6 +879,7 @@ def main() -> int:
     profile_phase(torch, tt, state, images, cams, cfg)
     del state, images, cams
     tb = testbed_phase(torch, st, cfg, hyper)
+    dyn = dynamic_phase(torch, st, cfg, hyper)
 
     def entry(name, replaces, rec, rec_f8, launches, extra=()):
         f8_keys = ("max_abs_err", "kernel_ms", "plain_ms", "bound_ms", "library_ms", *extra)
@@ -688,7 +895,8 @@ def main() -> int:
         {**entry("segment_sum_rows", "neus2_tpu/ops/segment_tile.py:376", k1, k1_f8,
                  tb["launches"]),
          "sort_ms": k1["sort_ms"], "launches_per_step": tb["launches_per_step"],
-         "train_static_launches": train["launches"]},
+         "train_static_launches": train["launches"],
+         "dynamic_launches": dyn["launches_by_phase"]},
     ] + [
         entry(name, replaces, sorted_k[name], sorted_f8[name], ops["launches"][name],
               extra=("entry_ms",))

@@ -1,6 +1,6 @@
 """Synthetic multi-view sphere scenes (numpy; port of
-``neus2_tpu/data/synthetic.py::make_sphere_dataset`` and
-``make_multi_sphere_dataset``).
+``neus2_tpu/data/synthetic.py::make_sphere_dataset``,
+``make_multi_sphere_dataset`` and ``make_moving_sphere_frames``).
 
 Images are rendered analytically through the training camera model, so
 training against them exercises the whole ray -> march -> field ->
@@ -114,3 +114,13 @@ def make_multi_sphere_dataset(spheres, n_views: int = 16, resolution: int = 64,
         aabb_scale=aabb_scale,
         from_na=True,
     )
+
+
+def make_moving_sphere_frames(n_frames: int = 3, translation_per_frame=(0.02, 0.0, 0.0),
+                              n_views: int = 12, resolution: int = 48) -> list[NerfDataset]:
+    """A dynamic scene, one dataset a frame: frame k is frame 0's sphere
+    moved by k * ``translation_per_frame`` (cameras drawn with seed k), so
+    the delta a frame should learn is the inverse of that translation."""
+    t = np.asarray(translation_per_frame, np.float32)
+    return [make_sphere_dataset(n_views=n_views, resolution=resolution, seed=k,
+                                center=SPHERE_CENTER + k * t) for k in range(n_frames)]

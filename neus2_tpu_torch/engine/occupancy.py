@@ -114,6 +114,12 @@ def update_bitfield(state: OccupancyGrid) -> OccupancyGrid:
     return state._replace(bitfield=bits)
 
 
+def reset_density(state: OccupancyGrid) -> OccupancyGrid:
+    """A fresh grid of the same shape (reference reset_density_grid_nerf,
+    testbed_nerf.cu:3205; after a dynamic frame's pose refinement)."""
+    return init_occupancy(state.n_cascades, state.grid_size, device=state.density.device)
+
+
 def mip_from_pos(pos: torch.Tensor, max_cascade: int) -> torch.Tensor:
     """Smallest cascade whose box contains pos."""
     d = torch.abs(pos - 0.5).amax(dim=-1)

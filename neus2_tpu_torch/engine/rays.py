@@ -20,6 +20,9 @@ class Cameras(NamedTuple):
     focal: torch.Tensor  # (N, 2) fx, fy in pixels
     principal: torch.Tensor  # (N, 2) cx, cy relative to resolution
     resolution: tuple[int, int]  # (W, H)
+    # Per-image sharpness grids (N, sh, sw) of the error map's sharpness
+    # weighting (reference dataset.sharpness_data); None when it is off.
+    sharpness: torch.Tensor | None = None
 
     @property
     def n_images(self) -> int:

@@ -10,9 +10,11 @@ exactly nothing.  Jittered multi-spp passes draw their stratified offsets
 from a ``torch.Generator`` the caller passes; the candidate probes stay at
 the deterministic midpoints, so one probe serves every pass.
 
-The accumulated rigid transform of dynamic scenes, the learned envmap and
-distortion grid, and exposure / tonemap are not ported yet: ``acc`` must be
-None (identity) and the others at their defaults.
+``acc``, the accumulated rigid transform of a dynamic scene ({"rotation",
+"transition"}, or None for the identity), moves the rays before marching,
+as in training (testbed_nerf.cu:1380-1387).  The learned envmap and
+distortion grid, and exposure / tonemap, are not ported yet and must stay at
+their defaults.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 
 from neus2_tpu_torch.engine.march import march_probe, march_rays
 from neus2_tpu_torch.engine.rays import Cameras, pixel_to_ray
+from neus2_tpu_torch.models.delta import apply_accumulated_to_rays
 from neus2_tpu_torch.models.field import FieldConfig, field_forward
 from neus2_tpu_torch.ops.losses import linear_to_srgb
 from neus2_tpu_torch.ops.neus_math import composite_rays, neus_alpha
@@ -42,17 +45,11 @@ class RenderConfig:
     spp: int = 1
 
 
-def _identity_only(acc) -> None:
-    if acc is not None:
-        raise NotImplementedError(
-            "a non-identity accumulated transform (dynamic scenes) is not ported yet"
-        )
-
-
-def _render_chunk(params, occupancy, origins: torch.Tensor, dirs: torch.Tensor,
+def _render_chunk(params, acc, occupancy, origins: torch.Tensor, dirs: torch.Tensor,
                   generator: torch.Generator | None, config: RenderConfig, jitter: bool):
     """rays -> samples -> field -> composite for one chunk ->
     (rgb, depth, opacity, normal, cost = valid samples per ray)."""
+    origins, dirs = apply_accumulated_to_rays(acc, origins, dirs)
     aabb = scene_aabb(config.aabb_scale)
     R, S = origins.shape[0], config.samples_per_ray
     xi = None
@@ -85,7 +82,6 @@ def render_rays(params, acc, occupancy, origins: torch.Tensor, dirs: torch.Tenso
     ``compact``: probe the occupancy march first and evaluate the field only
     for rays that cross occupied space (misses are exact zeros either way).
     ``render_image`` compacts by itself, sharing one probe across passes."""
-    _identity_only(acc)
     n = origins.shape[0]
     if compact and occupancy is not None:
         hit_idx = probe_hit_rays(acc, occupancy, origins, dirs, config)
@@ -97,7 +93,7 @@ def render_rays(params, acc, occupancy, origins: torch.Tensor, dirs: torch.Tenso
                           generator, config, jitter=jitter)
         return tuple(e.index_copy(0, hit_idx, s) for e, s in zip(empty, sub))
     outs = [
-        _render_chunk(params, occupancy, o, d, generator, config, jitter)
+        _render_chunk(params, acc, occupancy, o, d, generator, config, jitter)
         for o, d in zip(torch.split(origins, config.chunk), torch.split(dirs, config.chunk))
     ]
     return tuple(torch.cat(parts) for parts in zip(*outs))
@@ -108,8 +104,8 @@ def probe_hit_rays(acc, occupancy, origins: torch.Tensor, dirs: torch.Tensor,
                    config: RenderConfig) -> torch.Tensor:
     """Indices of the rays whose chord crosses occupied space (int64, on the
     rays' device): one chunked march-only probe and one host sync."""
-    _identity_only(acc)
     aabb = scene_aabb(config.aabb_scale)
+    origins, dirs = apply_accumulated_to_rays(acc, origins, dirs)
     totals = torch.cat([
         march_probe(o, d, aabb, occupancy, config.n_candidates,
                     cone_angle=config.cone_angle, near=config.near)
@@ -133,7 +129,6 @@ def render_image(params, acc, occupancy, cameras: Cameras, pose: torch.Tensor,
     drawn from ``generator``.  Eval protocol (reference scripts/run.py:
     264-271): black background, spp 8, min transmittance 1e-4; the network's
     colour is already sRGB."""
-    _identity_only(acc)
     if envmap is not None or distortion is not None:
         raise NotImplementedError("envmap and distortion rendering are not ported yet")
     if exposure != 0.0 or tonemap.lower() != "identity":

@@ -3,9 +3,13 @@ the port's tensors and back.
 
 Both packages keep the same tree layout (per-level table tuple,
 ``{"layers": [{"w": (in, out), "b"}]}`` MLPs, scalar ``variance``; Adam
-``{"mu", "nu", "steps", "count"}``), so conversion is a leaf-wise copy.
-Counters that the port keeps on the host (Adam ``count``, occupancy
-``ema_step``, ``step``, ``frame_step``) become Python integers.
+``{"mu", "nu", "steps", "count"}``; the delta ``{"rotation6d",
+"transition"}`` and the accumulated transform ``{"rotation",
+"transition"}``), so conversion is a leaf-wise copy.  Counters that the port
+keeps on the host (Adam ``count``, occupancy ``ema_step``, ``step``,
+``frame_step``) become Python integers.  The way back fills a JAX state
+given as a template (``like``), so this module needs none of the JAX
+package's types.
 """
 
 from __future__ import annotations
@@ -17,9 +21,14 @@ from typing import Any
 import numpy as np
 import torch
 
+from neus2_tpu_torch.engine.error_map import ErrorMapState, init_error_map
 from neus2_tpu_torch.engine.occupancy import OccupancyGrid
 from neus2_tpu_torch.engine.train import TrainState
+from neus2_tpu_torch.models.delta import init_accumulated, init_delta
+from neus2_tpu_torch.utils.optim import plain_adam_init
 from neus2_tpu_torch.utils.tree import tree_map
+
+_PARAM_KEYS = ("hashgrid", "hashgrid_base", "sdf_mlp", "rgb_mlp", "variance")
 
 
 def tree_to_torch(tree: Any, device="cpu") -> Any:
@@ -41,14 +50,16 @@ def _lists(tree: Any) -> Any:
 
 
 def params_from_jax(params: dict, device="cpu") -> dict:
-    """{"hashgrid": (T_l, F) per level, "sdf_mlp", "rgb_mlp", "variance"}."""
-    keys = ("hashgrid", "sdf_mlp", "rgb_mlp", "variance")
-    return tree_to_torch({k: params[k] for k in keys}, device)
+    """{"hashgrid": (T_l, F) per level, "sdf_mlp", "rgb_mlp", "variance"},
+    and "hashgrid_base" with a residual grid."""
+    return tree_to_torch({k: params[k] for k in _PARAM_KEYS if k in params}, device)
 
 
 def params_to_jax(params: dict) -> dict:
     out = tree_to_numpy(params)
-    out["hashgrid"] = tuple(out["hashgrid"])
+    for k in ("hashgrid", "hashgrid_base"):
+        if k in out:
+            out[k] = tuple(out[k])
     return out
 
 
@@ -70,6 +81,33 @@ def adam_to_jax(opt_state: dict) -> dict:
     }
 
 
+def delta_adam_from_jax(opt_state, device="cpu") -> dict:
+    """The delta's Adam, held in the JAX package as a (ScaleByAdamState,
+    EmptyState) pair -> the port's ``{"mu", "nu", "count"}``."""
+    s = opt_state[0]
+    return {"mu": tree_to_torch(dict(s.mu), device), "nu": tree_to_torch(dict(s.nu), device),
+            "count": int(s.count)}
+
+
+def delta_adam_to_jax(opt_state: dict, like):
+    """The port's delta Adam as ``like``'s (ScaleByAdamState, ...) pair."""
+    s = like[0]._replace(mu=tree_to_numpy(opt_state["mu"]), nu=tree_to_numpy(opt_state["nu"]),
+                         count=np.int32(opt_state["count"]))
+    return (s,) + tuple(like[1:])
+
+
+def error_map_from_jax(em, device="cpu") -> ErrorMapState:
+    """Any (error_map, cdf, sharpness_grid) triple -> ``ErrorMapState``."""
+    grid = None if em.sharpness_grid is None else np.array(em.sharpness_grid)
+    return ErrorMapState(*tree_to_torch([np.array(em.error_map), np.array(em.cdf)], device),
+                         None if grid is None else torch.as_tensor(grid, device=device))
+
+
+def error_map_to_jax(em: ErrorMapState, like):
+    return like._replace(**{f: None if v is None else v.detach().cpu().numpy()
+                            for f, v in zip(ErrorMapState._fields, em)})
+
+
 def occupancy_from_jax(density, bitfield, ema_step, device="cpu") -> OccupancyGrid:
     return OccupancyGrid(
         density=torch.as_tensor(np.array(density), device=device),
@@ -79,15 +117,25 @@ def occupancy_from_jax(density, bitfield, ema_step, device="cpu") -> OccupancyGr
 
 
 def state_from_jax(params, ema_params, opt_state, occupancy, step, frame_step,
-                   device="cpu", seed: int = 0) -> TrainState:
+                   device="cpu", seed: int = 0, delta=None, delta_opt_state=None,
+                   acc=None, error_map=None) -> TrainState:
     """A port ``TrainState`` from the JAX state's parts (numpy trees;
-    ``occupancy`` as a (density, bitfield, ema_step) triple).  The JAX key
-    has no torch counterpart: the step generator is seeded ``seed``."""
+    ``occupancy`` as a (density, bitfield, ema_step) triple).  The dynamic
+    parts left as None start fresh (identity delta and accumulated
+    transform, zero Adam, a 1-image 32^2 error map).  The JAX key has no
+    torch counterpart: the step generator is seeded ``seed``."""
+    delta = init_delta(device) if delta is None else tree_to_torch(dict(delta), device)
     return TrainState(
         params=params_from_jax(params, device),
         ema_params=params_from_jax(ema_params, device),
         opt_state=adam_from_jax(opt_state, device),
+        delta=delta,
+        delta_opt_state=(plain_adam_init(delta) if delta_opt_state is None
+                         else delta_adam_from_jax(delta_opt_state, device)),
+        acc=init_accumulated(device) if acc is None else tree_to_torch(dict(acc), device),
         occupancy=occupancy_from_jax(*occupancy, device=device),
+        error_map=(init_error_map(1, device=device) if error_map is None
+                   else error_map_from_jax(error_map, device)),
         step=int(step),
         frame_step=int(frame_step),
         generator=torch.Generator(device=device).manual_seed(seed),
@@ -96,28 +144,60 @@ def state_from_jax(params, ema_params, opt_state, occupancy, step, frame_step,
 
 def train_state_from_jax(state, device="cpu", seed: int = 0) -> TrainState:
     """A port ``TrainState`` from a whole JAX ``TrainState`` (host copy:
-    numpy leaves), of which the canonical field's parts are taken."""
+    numpy leaves): the field, its Adam and EMA, the delta and its Adam, the
+    accumulated transform, the occupancy grid and the error map."""
     occ = state.occupancy
     return state_from_jax(state.params, state.ema_params, state.opt_state,
                           (occ.density, occ.bitfield, occ.ema_step),
-                          state.step, state.frame_step, device=device, seed=seed)
+                          state.step, state.frame_step, device=device, seed=seed,
+                          delta=state.delta, delta_opt_state=state.delta_opt_state,
+                          acc=state.acc, error_map=state.error_map)
+
+
+def train_state_to_jax(state: TrainState, like):
+    """The port's state as a JAX ``TrainState`` (numpy leaves) with
+    ``like``'s structure; ``like``'s camera group and key are kept."""
+    occ = state.occupancy
+    return like._replace(
+        params=params_to_jax(state.params),
+        ema_params=params_to_jax(state.ema_params),
+        opt_state=adam_to_jax(state.opt_state),
+        delta=tree_to_numpy(state.delta),
+        delta_opt_state=delta_adam_to_jax(state.delta_opt_state, like.delta_opt_state),
+        acc=tree_to_numpy(state.acc),
+        occupancy=like.occupancy._replace(density=occ.density.cpu().numpy(),
+                                          bitfield=occ.bitfield.cpu().numpy(),
+                                          ema_step=np.int32(occ.ema_step)),
+        error_map=error_map_to_jax(state.error_map, like.error_map),
+        step=np.int32(state.step),
+        frame_step=np.int32(state.frame_step),
+    )
+
+
+_PHASE = ("current_training_time_frame", "train_canonical", "train_delta", "use_delta")
 
 
 def testbed_from_jax(state, hyper, config, dataset, training_step: int = 0,
-                     device="cpu", seed: int = 0):
-    """A port ``Testbed`` on ``dataset`` (a port ``NerfDataset``) whose
-    state is the JAX Testbed's: its ``TrainState`` (host copy), its
-    ``Hyperparams`` (any object with the same fields) and the port's
-    ``TrainConfig`` for it.  The dataset-derived config is applied as
+                     device="cpu", seed: int = 0, phase=None, datasets=None):
+    """A port ``Testbed`` whose state is the JAX Testbed's: its
+    ``TrainState`` (host copy), its ``Hyperparams`` (any object with the
+    same fields) and the port's ``TrainConfig`` for it.  ``dataset`` (a port
+    ``NerfDataset``) is the frame in training; a dynamic scene passes all
+    its frames as ``datasets`` and the JAX Testbed itself as ``phase``,
+    whose frame index and phase flags (train_canonical, train_delta,
+    use_delta) are taken.  The dataset-derived config is applied as
     ``load_training_data`` would; no fresh state is drawn."""
     from neus2_tpu_torch.api.testbed import Hyperparams, Testbed
 
     hp = Hyperparams(**{f.name: getattr(hyper, f.name)
                         for f in dataclasses.fields(Hyperparams)})
     tb = Testbed(config=config, hyper=hp, seed=seed, device=device)
-    tb._datasets = [dataset]
-    tb.frame_jsons = [Path("<memory:0>")]
-    tb._load_frame(0)
+    tb._datasets = list(datasets) if datasets is not None else [dataset]
+    tb.frame_jsons = [Path(f"<memory:{i}>") for i in range(len(tb._datasets))]
+    if phase is not None:
+        for name in _PHASE:
+            setattr(tb, name, type(getattr(tb, name))(getattr(phase, name)))
+    tb._load_frame(tb.current_training_time_frame)
     tb._derive_config()
     tb.state = train_state_from_jax(state, device=device, seed=seed)
     tb.training_step = int(training_step)

@@ -40,6 +40,10 @@ class FieldConfig:
     sdf_bias: float = SDF_BIAS
     geometric_init: bool = True
     init_radius: float = 0.5
+    # Residual hash grid for dynamic scenes: lookups read frozen base +
+    # trained residual (reference DynamicGridEncoding, double_hash_grid.h:
+    # 288, 2483-2514 set_base_grid).
+    residual_grid: bool = False
 
     @property
     def sdf_in_dim(self) -> int:
@@ -83,6 +87,8 @@ def init_field(generator: torch.Generator, config: FieldConfig, device="cpu") ->
         ),
         "variance": torch.tensor(VARIANCE_INIT, dtype=torch.float32),
     }
+    if config.residual_grid:
+        params["hashgrid_base"] = [torch.zeros_like(t) for t in grid]
     return tree_map(lambda t: t.to(device), params)
 
 
@@ -111,10 +117,31 @@ def _encoder(grid_config: HashGridConfig):
     return make_encode_jac(grid_config)
 
 
+def effective_grid_tables(params: Params) -> list[torch.Tensor]:
+    """The tables every lookup reads: with a residual grid, the frozen base
+    (kept out of autograd) plus the trained residual (double_hash_grid.h:
+    288, result = grid + base_grid)."""
+    tables = params["hashgrid"]
+    if "hashgrid_base" in params:
+        tables = [b.detach() + t for b, t in zip(params["hashgrid_base"], tables)]
+    return tables
+
+
+def freeze_grid_into_base(params: Params) -> Params:
+    """Fold the trained residual into the base and start a zero residual
+    (the dynamic frame switch; set_base_grid, double_hash_grid.h:2483)."""
+    if "hashgrid_base" not in params:
+        return params
+    new = dict(params)
+    new["hashgrid_base"] = [b + t for b, t in zip(params["hashgrid_base"], params["hashgrid"])]
+    new["hashgrid"] = [torch.zeros_like(t) for t in params["hashgrid"]]
+    return new
+
+
 def sdf_fn(params: Params, x: torch.Tensor, config: FieldConfig,
            valid_level=None, max_level=None) -> tuple[torch.Tensor, torch.Tensor]:
     """(biased sdf (...,), raw SDF-MLP output (..., sdf_out_dim))."""
-    enc, _ = _encoder(config.grid)(params["hashgrid"], x, valid_level, max_level)
+    enc, _ = _encoder(config.grid)(effective_grid_tables(params), x, valid_level, max_level)
     out = apply_mlp(params["sdf_mlp"], torch.cat([x, enc], -1))
     return out[..., 0] + config.sdf_bias, out
 
@@ -130,7 +157,8 @@ def sdf_normal_features(params: Params, x: torch.Tensor, config: FieldConfig,
     function of the weights and of the encoder's ``jac`` output, so plain
     autograd gives the eikonal's second-order path (the JAX package uses
     forward-mode linearization)."""
-    enc, jac = _encoder(config.grid)(params["hashgrid"], x, valid_level, max_level)
+    enc, jac = _encoder(config.grid)(effective_grid_tables(params), x, valid_level,
+                                     max_level)
     h = torch.cat([x, enc], -1)  # (N, in)
     eye = torch.eye(3, dtype=x.dtype, device=x.device).expand(x.shape[0], 3, 3)
     t = torch.cat([eye, jac], -1)  # (N, 3, in)

@@ -1,6 +1,8 @@
 """Image quality metrics and the eval target
-(port of ``neus2_tpu/ops/image.py``:14-77; reference scripts/common.py:46
-mse2psnr, :201-266 SSIM with an 11x11 Gaussian window, scripts/run.py:264-344).
+(port of ``neus2_tpu/ops/image.py``:14-77 and :106; reference
+scripts/common.py:46 mse2psnr, :201-266 SSIM with an 11x11 Gaussian window,
+scripts/run.py:264-344), and the load-time sharpness maps of the error
+map's sharpness weighting.
 
 PSNR = -10 log10(MSE) on clipped sRGB renders; SSIM is the mean over an
 (H, W, C) pair of the 11x11 Gaussian-window statistics, computed with a
@@ -11,6 +13,7 @@ own call only.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -68,3 +71,36 @@ def srgb_eval_target(tex: torch.Tensor) -> torch.Tensor:
     safe = torch.where(a > 0, a, torch.ones_like(a))
     return torch.where(a > 0, linear_to_srgb(tex[..., :3] / safe) * a,
                        torch.zeros_like(tex[..., :3]))
+
+
+def sharpness_maps(images, resolution: tuple[int, int] = (128, 72)) -> np.ndarray:
+    """Per-image variance-of-Laplacian sharpness grids, on the host at load
+    (reference compute_sharpness, nerf_loader.cu:129-169: rec.709 luma, the
+    4-neighbour Laplacian over the interior, the variance in each cell of a
+    128 x 72 grid whose pixel range x*W/rw is clamped to [1, W-2]).
+
+    ``images`` (N, H, W, C >= 3) -> (N, rh, rw) float32, (rw, rh) =
+    ``resolution``; cell sums through integral images."""
+    imgs = np.asarray(images, np.float32)
+    n, h, w = imgs.shape[:3]
+    rw, rh = resolution
+    lum = imgs[..., 0] * 0.2126 + imgs[..., 1] * 0.7152 + imgs[..., 2] * 0.0722
+    lap = np.zeros_like(lum)
+    lap[:, 1:-1, 1:-1] = (4.0 * lum[:, 1:-1, 1:-1] - lum[:, :-2, 1:-1] - lum[:, 2:, 1:-1]
+                          - lum[:, 1:-1, :-2] - lum[:, 1:-1, 2:])
+    ii = np.zeros((n, h + 1, w + 1), np.float64)
+    ii2 = np.zeros((n, h + 1, w + 1), np.float64)
+    ii[:, 1:, 1:] = lap.cumsum(1).cumsum(2)
+    ii2[:, 1:, 1:] = (lap * lap).cumsum(1).cumsum(2)
+    xs = np.arange(rw + 1) * w // rw
+    ys = np.arange(rh + 1) * h // rh
+    x1, x2 = np.maximum(xs[:-1], 1), np.minimum(xs[1:], w - 2)
+    y1, y2 = np.maximum(ys[:-1], 1), np.minimum(ys[1:], h - 2)
+
+    def rect(a):  # (N, rh, rw) sums over [y1, y2) x [x1, x2)
+        return (a[:, y2[:, None], x2[None, :]] - a[:, y1[:, None], x2[None, :]]
+                - a[:, y2[:, None], x1[None, :]] + a[:, y1[:, None], x1[None, :]])
+
+    cnt = np.maximum((y2 - y1)[:, None] * (x2 - x1)[None, :], 1).astype(np.float64)
+    m = rect(ii) / cnt
+    return np.maximum(rect(ii2) / cnt - m * m, 0.0).astype(np.float32)

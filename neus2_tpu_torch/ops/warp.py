@@ -54,3 +54,7 @@ def warp_position(pos: torch.Tensor, aabb: AABB) -> torch.Tensor:
 
 def warp_direction(direction: torch.Tensor) -> torch.Tensor:
     return (direction + 1.0) * 0.5
+
+
+def unwarp_direction(direction: torch.Tensor) -> torch.Tensor:
+    return direction * 2.0 - 1.0

@@ -1,15 +1,21 @@
-"""CLI runner for static scenes: train, evaluate, export a mesh (port of the
-static path of ``neus2_tpu/run.py``; reference scripts/run.py: the train
-loop over testbed.frame() at 207, the PSNR/SSIM eval against a held-out
-transforms json at 251-344, the marching-cubes export at 241-243).
+"""CLI runner for static and dynamic scenes: train, evaluate, export a mesh
+(port of the nerf mode of ``neus2_tpu/run.py``; reference scripts/run.py:
+the train loop over testbed.frame() at 207, the PSNR/SSIM eval against a
+held-out transforms json at 251-344, the marching-cubes export at 241-243;
+scripts/run_dynamic.py for per-frame dynamic scenes).
 
 Usage:
   python -m neus2_tpu_torch.run --scene data/scan24/transforms.json \\
       --network configs/base.json --n_steps 2000 --name exp1 \\
       --save_mesh --test_transforms data/scan24/transforms_test.json
+  python -m neus2_tpu_torch.run --scene data/dynamic_scene_dir/ --name dyn1 \\
+      --next_frame_steps 1000 --dynamic_save_mesh --eval_per_frame
 
-Runs on the card unless ``--device cpu`` is given.  Dynamic scenes,
-snapshots, multi-GPU and the sdf and image modes are not ported yet.
+A dynamic scene writes ``checkpoints/transform_{k}.txt`` (the accumulated
+rigid transform) when frame k finishes and for the last frame.  Runs on
+the card unless ``--device cpu`` is given.  Snapshots (the per-frame ones
+of dynamic scenes too), multi-GPU and the sdf and image modes are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -28,19 +34,26 @@ import torch
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--scene", required=True, help="transforms.json of a static scene")
+    p.add_argument("--scene", required=True,
+                   help="transforms.json (static) or a directory of per-frame jsons (dynamic)")
     p.add_argument("--network", default=None, help="network config json (reference format)")
     p.add_argument("--name", default="exp", help="experiment name -> <output_dir>/<name>/")
     p.add_argument("--output_dir", default="output")
     p.add_argument("--n_steps", type=int, default=None,
                    help="override first_frame_max_training_step")
+    p.add_argument("--next_frame_steps", type=int, default=None,
+                   help="dynamic scenes: override next_frame_max_training_step")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--n_rays", type=int, default=None)
     p.add_argument("--samples_per_ray", type=int, default=None)
     p.add_argument("--save_mesh", action="store_true")
+    p.add_argument("--dynamic_save_mesh", action="store_true",
+                   help="dynamic scenes: export the canonical mesh when each frame finishes")
     p.add_argument("--mesh_resolution", type=int, default=256)
     p.add_argument("--test_transforms", default=None,
                    help="held-out transforms json for PSNR/SSIM eval")
+    p.add_argument("--eval_per_frame", action="store_true",
+                   help="dynamic scenes: log view 0's PSNR when each frame finishes")
     p.add_argument("--eval_spp", type=int, default=8)
     p.add_argument("--device", default="cuda", help="torch device (default: the card)")
     p.add_argument("--mode", choices=("nerf", "sdf", "image"), default="nerf")
@@ -62,7 +75,7 @@ def main(argv=None):
     from neus2_tpu_torch.engine.train import TrainConfig
 
     out = Path(args.output_dir) / args.name
-    for sub in ("mesh", "logs"):
+    for sub in ("checkpoints", "mesh", "logs"):
         (out / sub).mkdir(parents=True, exist_ok=True)
     log_path = out / "log.txt"
 
@@ -82,6 +95,8 @@ def main(argv=None):
         config = dataclasses.replace(config, **changes)
     if args.n_steps:
         hyper.first_frame_max_training_step = args.n_steps
+    if args.next_frame_steps:
+        hyper.next_frame_max_training_step = args.next_frame_steps
 
     tb = Testbed(config=config, hyper=hyper, seed=args.seed, device=args.device)
     log(f"loading scene {args.scene}")
@@ -90,16 +105,36 @@ def main(argv=None):
     except FileNotFoundError as e:
         print(f"error: scene not found: {e}", file=sys.stderr)
         sys.exit(2)
-    log(f"{tb.dataset.n_images} images @ {tb.dataset.resolution}, device={tb.device}")
+    log(f"{tb.dataset.n_images} images @ {tb.dataset.resolution}, "
+        f"{tb.all_training_time_frame} time frame(s), device={tb.device}")
+    if tb.is_dynamic:
+        log("per-frame snapshots are skipped: snapshots are not ported yet")
+    if args.eval_per_frame:
+        tb.on_frame_complete = _make_per_frame_eval(log)
 
     t0 = time.time()
-    step = 0
+    step = last_frame = 0
     while tb.frame():
         step += 1
+        if tb.current_training_time_frame != last_frame:
+            # The switch has folded frame last_frame's delta into acc.
+            last_frame = tb.current_training_time_frame
+            log(f"-> time frame {last_frame} at step {step} [{time.time() - t0:.1f}s]")
+            tb.save_transform(out / "checkpoints" / f"transform_{last_frame - 1}.txt")
+            if args.dynamic_save_mesh:
+                mesh_path = out / "mesh" / f"frame_{last_frame - 1:04d}.obj"
+                tb.compute_and_save_marching_cubes_mesh(mesh_path,
+                                                        resolution=args.mesh_resolution)
+                log(f"  per-frame mesh -> {mesh_path}")
         if step % 100 == 0:
-            log(f"step {step} loss={tb.loss_scalar:.5f} ek={tb.ek_loss_scalar:.5f} "
+            log(f"step {step} (frame {tb.current_training_time_frame} local "
+                f"{tb.training_step}) loss={tb.loss_scalar:.5f} ek={tb.ek_loss_scalar:.5f} "
                 f"mask={tb.mask_loss_scalar:.5f} [{time.time() - t0:.1f}s]")
     log(f"training done: {step} steps in {time.time() - t0:.1f}s")
+    if tb.is_dynamic:
+        # The last frame's delta is never folded; save_transform includes it.
+        tb.save_transform(out / "checkpoints"
+                          / f"transform_{tb.current_training_time_frame}.txt")
     tb.prepare_for_test()
 
     if args.save_mesh:
@@ -120,6 +155,27 @@ def main(argv=None):
             json.dump(metrics, f, indent=2)
         log(f"eval: PSNR {metrics['psnr_mean']:.2f} dB  SSIM {metrics['ssim_mean']:.4f}")
     return tb
+
+
+def _make_per_frame_eval(log):
+    """A frame hook logging view 0's PSNR (reference run_dynamic.py:183-201:
+    64 samples, spp 1, black background)."""
+    from neus2_tpu_torch.engine.render import RenderConfig, render_image
+    from neus2_tpu_torch.ops.image import psnr, srgb_eval_target
+
+    def hook(tb, frame_idx):
+        cfg = RenderConfig(field=tb.config.field, aabb_scale=tb.config.aabb_scale,
+                           samples_per_ray=64, n_candidates=192)
+        cams = tb.cameras
+        rgb, _, _ = render_image(
+            tb.state.ema_params, tb.effective_acc, tb.state.occupancy, cams,
+            cams.poses[0], cams.focal[0], cams.principal[0],
+            torch.Generator(device=tb.device).manual_seed(0), cfg, background=0.0, spp=1,
+        )
+        log(f"frame {frame_idx} view-0 PSNR: "
+            f"{float(psnr(rgb, srgb_eval_target(tb.images[0]))):.2f} dB")
+
+    return hook
 
 
 def evaluate(tb, test_transforms: str, spp: int, log) -> tuple[list, list]:

@@ -9,6 +9,9 @@ without an optimizer library; reference tcnn adam.h:52-160, exponential_decay.h,
   * tcnn debias: lr * sqrt(1-b2^t)/(1-b1^t) / (sqrt(v)+eps) * m;
   * optional AdaBound clamping and per-component freezing.
 
+``plain_adam_*`` is the textbook Adam of the dynamic scenes' delta
+transform.
+
 The state is ``{"mu", "nu", "steps", "count"}`` with the parameter tree's
 structure, as in the JAX package; ``count`` is a host integer.
 """
@@ -32,6 +35,9 @@ from neus2_tpu_torch.utils.tree import (
 @dataclasses.dataclass(frozen=True)
 class OptimConfig:
     learning_rate: float = 1e-3
+    # The learning rate of frames after the first in dynamic scenes
+    # (reference Adam "after_learning_rate", testbed.cu:2698-2703).
+    after_learning_rate: float = 1e-3
     beta1: float = 0.9
     beta2: float = 0.99
     epsilon: float = 1e-15
@@ -51,6 +57,7 @@ _COMPONENT_OF_KEY = {
     "rgb_mlp": "rgb_network",
     "variance": "variance_network",
     "hashgrid": "pos_encoding",
+    "hashgrid_base": "pos_encoding",
 }
 
 
@@ -130,6 +137,29 @@ def adam_update(grads: Any, state: dict, params: Any, config: OptimConfig):
     }
     new_state["count"] = count
     return tree_unflatten_like(params, [o[0] for o in out]), new_state
+
+
+def plain_adam_init(params: Any) -> dict:
+    return {"mu": tree_map(torch.zeros_like, params),
+            "nu": tree_map(torch.zeros_like, params), "count": 0}
+
+
+@torch.no_grad()
+def plain_adam_update(grads: Any, state: dict, lr: float):
+    """Textbook Adam with bias-corrected moments, update = -lr m_hat /
+    (sqrt(v_hat) + eps), b1 0.9, b2 0.99, eps 1e-10 (base.json
+    "globalmove"): the optimizer of the dynamic scenes' delta transform,
+    not the field's tcnn-style one.  -> (updates, new state); trees as
+    ``grads``."""
+    b1, b2, eps = 0.9, 0.99, 1e-10
+    count = state["count"] + 1
+    one = torch.tensor(1.0)
+    c1 = float(one - torch.tensor(b1) ** count)  # bias corrections in fp32
+    c2 = float(one - torch.tensor(b2) ** count)
+    mu = tree_map(lambda g, m: (1 - b1) * g + b1 * m, grads, state["mu"])
+    nu = tree_map(lambda g, v: (1 - b2) * g * g + b2 * v, grads, state["nu"])
+    updates = tree_map(lambda m, v: -lr * ((m / c1) / (torch.sqrt(v / c2) + eps)), mu, nu)
+    return updates, {"mu": mu, "nu": nu, "count": count}
 
 
 @torch.no_grad()

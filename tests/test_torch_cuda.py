@@ -1,7 +1,9 @@
 """The port's CUDA path on the card: the four segment-sum kernels against
 their plain versions and on edge streams, the segment-sum op layer on the
-card against the CPU, and one training step on the card against the same
-step on the CPU.
+card against the CPU, one training step on the card against the same step
+on the CPU, a dynamic step in each phase (pose refinement, finetune) and
+the residual grid's freeze on the card against the CPU, and the error
+map's deposit, rebuild and sampling on the card against the CPU.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports neither JAX nor the JAX package, so it runs where they are absent;
@@ -15,7 +17,14 @@ version's float64 sum, so max |diff| <= 1e-5 * max|ref| + 1e-7.  Against
 the CPU step, forward quantities agree to fp32 rounding (rtol 1e-4) and the
 MLP gradients within 1e-3 of their max; table gradients within 1e-2 of
 their max, because the card sums bf16-quantized updates (the reference's
-fp16-atomic precision) where the CPU sums exact fp32.
+fp16-atomic precision) where the CPU sums exact fp32.  A dynamic step's
+delta gradient within 1e-3 of its max (a sum over every sample), its new
+delta within 2e-4 (a fresh Adam moves each DoF by up to the learning rate
+1e-4 either way, so a rounding-level gradient may flip one step); the
+freeze exactly (one float sum).  Error map: deposits add in no fixed order
+on the card (atomics), so within 1e-5 of the map's max; the rebuilt CDF
+within 1e-5 (a parallel scan against a sequential one); the sharpness
+update and the sampled cells exactly, uv within 1e-7.
 """
 
 import dataclasses
@@ -354,18 +363,21 @@ def _small_config():
                                n_candidates=32, occ_n_probe=4096)
 
 
+def _to(x, device):
+    """Every tensor of a state tree (dicts, lists, named tuples) on ``device``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    if isinstance(x, dict):
+        return {k: _to(v, device) for k, v in x.items()}
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_to(v, device) for v in x))
+    if isinstance(x, (list, tuple)):
+        return type(x)(_to(v, device) for v in x)
+    return x
+
+
 def _state_to(state, device):
-    move = lambda t: t.to(device)
-    return state._replace(
-        params=tree_map(move, state.params),
-        ema_params=tree_map(move, state.ema_params),
-        opt_state={k: v if k == "count" else tree_map(move, v)
-                   for k, v in state.opt_state.items()},
-        occupancy=state.occupancy._replace(
-            density=move(state.occupancy.density), bitfield=move(state.occupancy.bitfield)
-        ),
-        generator=torch.Generator(device=device).manual_seed(0),
-    )
+    return _to(state, device)._replace(generator=torch.Generator(device=device).manual_seed(0))
 
 
 def test_train_step_on_card_matches_cpu(cuda):
@@ -375,12 +387,14 @@ def test_train_step_on_card_matches_cpu(cuda):
     state = tt.occupancy_prior_sweep(state, cfg)
     draws = tt.sample_step_draws(torch.Generator().manual_seed(5), cfg, 4)
 
-    cpu_grads, cpu_aux = tt.loss_and_grads(state.params, state, images, cams, draws, cfg)
+    cpu_grads, cpu_aux, _ = tt.loss_and_grads({"params": state.params}, state, images, cams,
+                                               draws, cfg)
     cstate = _state_to(state, cuda)
     c_images, c_cams = make_sphere_dataset(n_views=4, resolution=32, seed=0).to_device(cuda)
-    c_draws = tt.StepDraws(*(d.to(cuda) for d in draws))
+    c_draws = draws.to(cuda)
     before = segment_tile.segment_sum_rows.launches
-    gpu_grads, gpu_aux = tt.loss_and_grads(cstate.params, cstate, c_images, c_cams, c_draws, cfg)
+    gpu_grads, gpu_aux, _ = tt.loss_and_grads({"params": cstate.params}, cstate, c_images,
+                                              c_cams, c_draws, cfg)
     torch.cuda.synchronize()
     assert segment_tile.segment_sum_rows.launches == before + 1
 
@@ -394,3 +408,139 @@ def test_train_step_on_card_matches_cpu(cuda):
         assert g.shape == c.shape and torch.isfinite(g).all()
         limit = 1e-2 if i < n_tables else 1e-3
         assert float((g - c).abs().max()) <= limit * max(float(c.abs().max()), 1e-12), i
+
+
+def _dynamic_setup(cuda, **kw):
+    """A CPU state and its copy on the card, for a frame >= 1: a folded
+    transform and a live delta."""
+    cfg = dataclasses.replace(_small_config(), delta_n_rays=32, use_error_map=True, **kw)
+    images, cams = make_sphere_dataset(n_views=4, resolution=32, seed=0).to_device("cpu")
+    state = tt.init_train_state(cfg, 4, seed=0, device="cpu")
+    state = tt.occupancy_prior_sweep(state, cfg)
+    c, s_ = float(np.cos(0.03)), float(np.sin(0.03))
+    state = state._replace(
+        acc={"rotation": torch.tensor([[c, -s_, 0.0], [s_, c, 0.0], [0.0, 0.0, 1.0]]),
+             "transition": torch.tensor([0.01, -0.02, 0.0])},
+        delta={"rotation6d": torch.tensor([1.0, 0.02, 0.0, -0.02, 1.0, 0.01]),
+               "transition": torch.tensor([-0.015, 0.005, 0.01])})
+    c_images, c_cams = make_sphere_dataset(n_views=4, resolution=32, seed=0).to_device(cuda)
+    return cfg, (images, cams), (c_images, c_cams), state, _state_to(state, cuda)
+
+
+@pytest.mark.parametrize("phase", ["refine", "finetune"])
+def test_dynamic_step_on_card_matches_cpu(cuda, phase):
+    cfg, (images, cams), (c_images, c_cams), state, cstate = _dynamic_setup(cuda)
+    if phase == "refine":
+        flags = dict(train_canonical=False, train_delta=True, use_delta=True)
+        cfg = dataclasses.replace(cfg, n_rays=cfg.delta_n_rays, hit_oversample=1)
+    else:
+        flags = dict(train_canonical=True, train_delta=True, use_delta=True)
+    step_cfg = tt.phase_config(cfg, flags["train_canonical"], flags["train_delta"])
+    assert step_cfg.use_error_map == (phase == "finetune")
+    draws = tt.sample_step_draws(torch.Generator().manual_seed(5), step_cfg, 4)
+    diff = {"delta": state.delta} if phase == "refine" else {"params": state.params,
+                                                             "delta": state.delta}
+    cpu_g, _, _ = tt.loss_and_grads(diff, state, images, cams, draws, step_cfg, True)
+    cpu_new, cpu_aux = tt.train_step(state, images, cams, cfg, draws=draws, **flags)
+
+    before = segment_tile.segment_sum_rows.launches
+    c_diff = {k: getattr(cstate, "params" if k == "params" else "delta") for k in diff}
+    gpu_g, _, _ = tt.loss_and_grads(c_diff, cstate, c_images, c_cams, draws.to(cuda),
+                                    step_cfg, True)
+    gpu_new, gpu_aux = tt.train_step(cstate, c_images, c_cams, cfg, draws=draws.to(cuda),
+                                     **flags)
+    torch.cuda.synchronize()
+    # Kernel 1 runs for every step that trains the field, never in refinement.
+    assert segment_tile.segment_sum_rows.launches == before + (0 if phase == "refine" else 2)
+
+    for name in tt.StepAux._fields:
+        np.testing.assert_allclose(float(getattr(gpu_aux, name)), float(getattr(cpu_aux, name)),
+                                   rtol=1e-4, atol=1e-7, err_msg=name)
+    for g, c in zip(tree_leaves(gpu_g["delta"]), tree_leaves(cpu_g["delta"])):
+        assert float((g.cpu() - c).abs().max()) <= 1e-3 * float(c.abs().max())
+    for g, c in zip(tree_leaves(gpu_new.delta), tree_leaves(cpu_new.delta)):
+        assert float((g.cpu() - c).abs().max()) <= 2e-4
+    assert not torch.equal(gpu_new.delta["transition"].cpu(), state.delta["transition"])
+    if phase == "refine":
+        for g, c in zip(tree_leaves(gpu_new.params), tree_leaves(state.params)):
+            assert torch.equal(g.cpu(), c)  # the field does not train
+        assert not gpu_new.error_map.error_map.any()  # and the error map is off
+        return
+    n_tables = cfg.field.grid.n_levels
+    for i, (g, c) in enumerate(zip(tree_leaves(gpu_g["params"]), tree_leaves(cpu_g["params"]))):
+        limit = 1e-2 if i < n_tables else 1e-3
+        assert float((g.cpu() - c).abs().max()) <= limit * max(float(c.abs().max()), 1e-12), i
+    ref = cpu_new.error_map.error_map
+    assert ref.any()
+    assert float((gpu_new.error_map.error_map.cpu() - ref).abs().max()) <= 1e-5 * float(ref.max())
+
+
+def test_residual_grid_freeze_on_card(cuda):
+    cfg, (images, cams), (c_images, c_cams), state, _ = _dynamic_setup(cuda)
+    field = dataclasses.replace(cfg.field, residual_grid=True)
+    cfg = dataclasses.replace(cfg, field=field, use_error_map=False)
+    from neus2_tpu_torch.models.field import freeze_grid_into_base, init_field, sdf_fn
+
+    params = init_field(torch.Generator().manual_seed(1), field, "cpu")
+    rng = np.random.default_rng(1)
+    params["hashgrid"] = [torch.from_numpy(rng.normal(0, 0.05, t.shape).astype(np.float32))
+                          for t in params["hashgrid"]]
+    params["hashgrid_base"] = [torch.from_numpy(rng.normal(0, 0.05, t.shape).astype(np.float32))
+                               for t in params["hashgrid"]]
+    frozen = freeze_grid_into_base(params)
+    c_frozen = freeze_grid_into_base(_to(params, cuda))
+    for a, b in zip(tree_leaves(c_frozen), tree_leaves(frozen)):
+        assert torch.equal(a.cpu(), b)
+    x = torch.from_numpy(rng.uniform(0.1, 0.9, (256, 3)).astype(np.float32))
+    before, _ = sdf_fn(_to(params, cuda), x.to(cuda), field)
+    after, _ = sdf_fn(c_frozen, x.to(cuda), field)
+    cpu_after, _ = sdf_fn(frozen, x, field)
+    np.testing.assert_allclose(after.cpu().numpy(), before.cpu().numpy(), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(after.cpu().numpy(), cpu_after.numpy(), rtol=1e-4, atol=1e-6)
+
+    # One canonical step on the frozen field: one kernel launch, base untouched.
+    cstate = _state_to(state._replace(params=frozen, ema_params=tree_map(torch.clone, frozen),
+                                      opt_state=tt.adam_init(frozen)), cuda)
+    n = segment_tile.segment_sum_rows.launches
+    new, aux = tt.train_step(cstate, c_images, c_cams, cfg)
+    torch.cuda.synchronize()
+    assert segment_tile.segment_sum_rows.launches == n + 1 and torch.isfinite(aux.loss)
+    for a, b in zip(new.params["hashgrid_base"], frozen["hashgrid_base"]):
+        assert torch.equal(a.cpu(), b)
+    assert any(t.any() for t in new.params["hashgrid"])
+
+
+def test_error_map_on_card_matches_cpu(cuda):
+    from neus2_tpu_torch.engine import error_map as em
+
+    rng = np.random.default_rng(2)
+    n_img, res, n = 3, 48, 1 << 16
+    state = em.init_error_map(n_img, res, sharpness_cells=4096)
+    img = torch.from_numpy(rng.integers(0, n_img, n))
+    uv = torch.from_numpy(rng.uniform(0, 1, (n, 2)).astype(np.float32))
+    loss = torch.from_numpy(rng.gamma(0.5, 1.0, n).astype(np.float32))
+    cpu = em.deposit(state, img, uv, loss)
+    gpu = em.deposit(_to(state, cuda), img.to(cuda), uv.to(cuda), loss.to(cuda))
+    ref = cpu.error_map
+    assert float((gpu.error_map.cpu() - ref).abs().max()) <= 1e-5 * float(ref.max())
+
+    cpu_r, gpu_r = em.rebuild_cdf(cpu), em.rebuild_cdf(gpu)
+    assert float((gpu_r.cdf.cpu() - cpu_r.cdf).abs().max()) <= 1e-5
+    assert not gpu_r.error_map.any() and gpu_r.sharpness_grid is not None
+
+    u = torch.from_numpy(rng.uniform(0, 1, n).astype(np.float32))
+    jitter = torch.from_numpy(rng.uniform(0, 1, (n, 2)).astype(np.float32))
+    c_img, c_uv = em.sample_pixels(cpu_r, u, jitter, n_img)
+    g_img, g_uv = em.sample_pixels(cpu_r._replace(cdf=cpu_r.cdf.to(cuda)), u.to(cuda),
+                                   jitter.to(cuda), n_img)
+    assert torch.equal(g_img.cpu(), c_img)
+    assert float((g_uv.cpu() - c_uv).abs().max()) <= 1e-7
+
+    grid = torch.from_numpy(rng.uniform(0, 2, 4096).astype(np.float32))
+    cells = torch.from_numpy(rng.integers(0, 512, 3000))
+    sharp = torch.from_numpy(rng.uniform(0, 3, 3000).astype(np.float32))
+    valid = torch.from_numpy(rng.uniform(size=3000) < 0.7)
+    cw, cg = em.sharpness_weight_and_update(grid, cells, sharp, valid)
+    gw, gg = em.sharpness_weight_and_update(grid.to(cuda), cells.to(cuda), sharp.to(cuda),
+                                            valid.to(cuda))
+    assert torch.equal(gw.cpu(), cw) and torch.equal(gg.cpu(), cg)

@@ -110,3 +110,40 @@ def test_table_grad_skips_position_grad_when_not_needed():
     feat, jac = make_encode_jac(tc)(tt, tx)
     (feat.sum() + jac.sum()).backward()
     assert tx.grad is None and all(t.grad is not None for t in tt)
+
+
+@pytest.mark.parametrize("F", [2, 8])
+def test_position_grad_skips_table_grad_when_no_table_trains(F, monkeypatch):
+    """Pose refinement: only the positions need a gradient, so the backward
+    makes no table gradient (no ``segment_dense_sum_multi`` call, no sort,
+    no kernel) and its position gradient is bitwise the one computed
+    beside the table gradient; the table gradient itself is unchanged."""
+    from neus2_tpu_torch.ops import hashgrid_fast
+
+    calls = []
+    real = hashgrid_fast.segment_dense_sum_multi
+    monkeypatch.setattr(hashgrid_fast, "segment_dense_sum_multi",
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    jc, tc, tables, x, rng = _setup(F, seed=3)
+    ct = [torch.from_numpy(rng.normal(size=s).astype(np.float32))
+          for s in ((x.shape[0], tc.output_dim), (x.shape[0], 3, tc.output_dim))]
+    grads = {}
+    for train_tables in (True, False):
+        tt = [torch.from_numpy(t).requires_grad_(train_tables) for t in tables]
+        tx = torch.from_numpy(x).requires_grad_(True)
+        feat, jac = make_encode_jac(tc)(tt, tx, 2)
+        torch.autograd.backward([feat, jac], ct)
+        grads[train_tables] = (tx.grad, [t.grad for t in tt])
+    assert calls == [1]
+    np.testing.assert_array_equal(grads[False][0].numpy(), grads[True][0].numpy())
+    assert all(g is None for g in grads[False][1])
+
+    enc = jax_make_encode_jac(jc)
+    _, vjp = jax.vjp(lambda tabs, pos: enc(tabs, pos, 2),
+                     tuple(jnp.asarray(t) for t in tables), jnp.asarray(x))
+    d_tabs, d_x = vjp((jnp.asarray(ct[0].numpy()), jnp.asarray(ct[1].numpy())))
+    ref_x = np.asarray(d_x)
+    assert np.abs(grads[False][0].numpy() - ref_x).max() <= 1e-5 * np.abs(ref_x).max()
+    for g, r in zip(grads[True][1], d_tabs):
+        r = np.asarray(r)
+        assert np.abs(g.numpy() - r).max() <= 1e-5 * max(np.abs(r).max(), 1e-6)

@@ -1,6 +1,7 @@
-"""The port's static CLI on the CPU, and a port Testbed built from a JAX
-Testbed's state (``interop.testbed_from_jax``) rendering and meshing as
-the JAX Testbed does.
+"""The port's CLI on the CPU, on a static scene and on a directory of two
+per-frame jsons, and a port Testbed built from a JAX Testbed's state
+(``interop.testbed_from_jax``) rendering and meshing as the JAX Testbed
+does.
 
 Tolerances: the Testbed's renders at spp 1 are deterministic in both
 packages, so rgb, depth and alpha agree to max |diff| <= 1e-4, with 384
@@ -15,6 +16,7 @@ either sign and change the topology).
 
 import dataclasses
 import json
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -24,6 +26,7 @@ import torch
 from neus2_tpu.api.testbed import Hyperparams as JHyperparams
 from neus2_tpu.api.testbed import Testbed as JTestbed
 from neus2_tpu.data.export import save_dataset_na
+from neus2_tpu.data.synthetic import make_moving_sphere_frames as jax_frames
 from neus2_tpu.data.synthetic import make_sphere_dataset as jax_sphere
 from neus2_tpu.engine.mesh import sdf_grid as jsdf_grid
 from neus2_tpu.engine.train import TrainConfig as JTrainConfig
@@ -75,6 +78,43 @@ def test_cli_trains_meshes_and_evaluates(scene_dir):
     metrics = json.loads((out / "metrics.json").read_text())
     assert len(metrics["psnr"]) == 2 and all(np.isfinite(metrics["psnr"]))
     assert 0.0 < metrics["ssim_mean"] <= 1.0
+
+
+def test_cli_dynamic_scene_writes_transforms_and_meshes(tmp_path, capsys):
+    scene = tmp_path / "dyn"
+    scene.mkdir()
+    for k, ds in enumerate(jax_frames(n_frames=2, n_views=4, resolution=16)):
+        js = Path(save_dataset_na(ds, tmp_path / f"f{k}"))
+        meta = json.loads(js.read_text())
+        for f in meta["frames"]:
+            f["file_path"] = str(js.parent / f["file_path"])
+        (scene / f"frame_{k:03d}.json").write_text(json.dumps(meta))
+    net = dict(NETWORK, hyperparams={"predict_global_movement": True,
+                                     "predict_global_movement_training_step": 2})
+    (tmp_path / "net.json").write_text(json.dumps(net))
+    tb = run.main([
+        "--scene", str(scene), "--network", str(tmp_path / "net.json"), "--name", "dyn",
+        "--output_dir", str(tmp_path / "out"), "--n_steps", "4", "--next_frame_steps", "4",
+        "--n_rays", "64", "--samples_per_ray", "16", "--dynamic_save_mesh", "--save_mesh",
+        "--mesh_resolution", "16", "--eval_per_frame", "--device", "cpu",
+    ])
+    assert tb.is_dynamic and tb.current_training_time_frame == 1 and tb.training_step == 4
+    assert tb.train_canonical and tb.train_delta and tb.use_delta
+    out = tmp_path / "out" / "dyn"
+    rows = {k: np.loadtxt(out / "checkpoints" / f"transform_{k}.txt") for k in (0, 1)}
+    assert all(r.shape == (3, 4) and np.isfinite(r).all() for r in rows.values())
+    # Frame 0 trains no delta, but its file is written after the switch's
+    # first refinement step, as the JAX package's CLI writes it: frame 1's
+    # delta has moved one Adam step (lr 1e-4 a DoF).  The last frame's file
+    # holds its live delta.
+    np.testing.assert_allclose(rows[0], np.hstack([np.eye(3), np.zeros((3, 1))]), atol=3e-4)
+    np.testing.assert_allclose(rows[1][:, :3], tb.effective_acc["rotation"].numpy(), atol=1e-7)
+    assert not np.array_equal(rows[1], rows[0])
+    assert (out / "mesh" / "frame_0000.obj").exists() and (out / "mesh" / "mesh.obj").exists()
+    log = (out / "log.txt").read_text()
+    assert "2 time frame(s)" in log and "-> time frame 1 at step 5" in log
+    assert "frame 0 view-0 PSNR" in log and "frame 1 view-0 PSNR" in log
+    assert capsys.readouterr().out.count("per-frame snapshots are skipped") == 1
 
 
 @pytest.mark.parametrize("flags", [["--mode", "sdf"], ["--snapshot", "x.msgpack"],

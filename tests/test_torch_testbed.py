@@ -142,8 +142,15 @@ def test_desired_batch_bucket_matches_jax(samples, occ_len):
 
 
 def test_error_map_raises():
-    with pytest.raises(NotImplementedError):
-        tiny_config(use_error_map=True)
+    """The error map raised until it was ported; now a config with it on
+    builds, and the Testbed sizes the map at load as the JAX one does."""
+    tb = ttb.Testbed(config=tiny_config(use_error_map=True), device="cpu")
+    tb._datasets = [make_sphere_dataset(2, 8)]
+    tb._load_frame(0)
+    tb._derive_config()
+    jt = jtb.Testbed(config=jax_tiny_config(use_error_map=True))
+    jt.load_training_data_from_datasets([jax_sphere(2, 8)])
+    assert tb.config.error_map_res == jt.config.error_map_res != 32
 
 
 def test_adaptive_bucket_switches_after_three_reads():

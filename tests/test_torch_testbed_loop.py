@@ -62,9 +62,11 @@ class _JaxDraws:
     def __init__(self):
         self.key = None
 
-    def train_step(self, state, images, cameras, config):
-        draws, _, self.key = _step_draws(self.key, config, cameras.n_images)
-        return tt.train_step(state, images, cameras, config, draws=draws)
+    def train_step(self, state, images, cameras, config, **phase):
+        cfg = tt.phase_config(config, phase.get("train_canonical", True),
+                              phase.get("train_delta", False))
+        draws, _, self.key = _step_draws(self.key, cfg, cameras.n_images)
+        return tt.train_step(state, images, cameras, config, draws=draws, **phase)
 
     def occupancy_update(self, state, config):
         self.key, k_probe = jax.random.split(self.key)

@@ -61,6 +61,10 @@ def test_config_from_json_matches(name):
         if f.name not in ("field", "optim"):
             assert getattr(tc, f.name) == getattr(jc, f.name), f.name
     assert tc.ek_loss_weight == (0.01 if name == "base.json" else jc.ek_loss_weight)
+    # The dynamic scenes' learning rates: the next frames' and the delta's
+    # ("globalmove").
+    assert tc.optim.after_learning_rate == jc.optim.after_learning_rate == 1e-3
+    assert tc.delta_lr == jc.delta_lr == 1e-4
 
 
 def test_synthetic_scene_matches():
@@ -71,21 +75,31 @@ def test_synthetic_scene_matches():
 
 
 def _step_draws(key, cfg, n_images):
-    """The draws of one JAX train_step, in the port's StepDraws layout."""
+    """The draws of one JAX train_step, in the port's StepDraws layout:
+    pixels uniformly or, with the error map, its uniforms and jitter
+    (error_map.sample_pixels :183); the probe and sample draws in the
+    compaction's split order or march_rays' (march.py:240)."""
     R, S = cfg.n_rays, cfg.samples_per_ray
     C = R * cfg.hit_oversample
     key, k_step = jax.random.split(key)
     k_pix, k_march, k_bg, k_drop = jax.random.split(k_step, 4)
-    k_img, k_uv = jax.random.split(k_pix)
-    k_probe, k_draw = jax.random.split(k_march)
+    k_a, k_b = jax.random.split(k_pix)
+    if cfg.hit_oversample > 1:
+        k_probe, k_draw = jax.random.split(k_march)
+    else:
+        k_draw, k_probe = jax.random.split(k_march)
     t = lambda a: torch.from_numpy(np.array(a))
+    pixels = dict(img_idx=t(jax.random.randint(k_a, (C,), 0, n_images)).long(),
+                  uv0=t(jax.random.uniform(k_b, (C, 2))))
+    if cfg.use_error_map:
+        pixels = dict(img_idx=None, uv0=None, em_u=t(jax.random.uniform(k_a, (C,))),
+                      em_jitter=t(jax.random.uniform(k_b, (C, 2))))
     draws = tt.StepDraws(
-        img_idx=t(jax.random.randint(k_img, (C,), 0, n_images)).long(),
-        uv0=t(jax.random.uniform(k_uv, (C, 2))),
         probe_u=t(jax.random.uniform(k_probe, (C, cfg.n_candidates))),
         xi=t(jax.random.uniform(k_draw, (R, S))),
         bg=t(jax.random.uniform(k_bg, (C, 3))),
         drop_u=t(jax.random.uniform(k_drop, (C,))),
+        **pixels,
     )
     return draws, k_step, key
 
@@ -136,14 +150,15 @@ def test_train_step_matches_jax(start):
         diff, st, images, cams, k, jcfg, False
     ))
     (_, (jaux, _)), jgrads = grad_fn({"params": jstate.params}, jstate, k_step)
-    tgrads, taux = tt.loss_and_grads(tstate.params, tstate, t_images, t_cams, draws, tcfg)
+    tgrads, taux, _ = tt.loss_and_grads({"params": tstate.params}, tstate, t_images, t_cams,
+                                        draws, tcfg)
     for f in jt.StepAux._fields:
         np.testing.assert_allclose(
             float(getattr(taux, f)), float(getattr(jaux, f)), rtol=1e-5, err_msg=f
         )
     assert 0 < int(taux.n_valid_samples) <= tcfg.n_rays * tcfg.samples_per_ray
     jg = jax.tree_util.tree_leaves(jgrads["params"])
-    tg = tree_leaves(tgrads)
+    tg = tree_leaves(tgrads["params"])
     assert len(jg) == len(tg)
     for a, b in zip(jg, tg):
         a = np.asarray(a)
