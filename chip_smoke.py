@@ -23,6 +23,11 @@ runs them, with the launch counts set to 0 just before and read just after:
     runs it: load the scene, ``while tb.frame()``, render two held-out
     views at the eval protocol and score PSNR / SSIM, export the
     marching-cubes mesh;
+  * ``snapshot_phase``: on that trained Testbed, a native snapshot saved,
+    loaded into a fresh Testbed (every leaf and a render bitwise) and
+    resumed for 20 steps (kernel 1 once a step, losses bitwise the
+    original's), a reference-format export, import and re-export (byte-equal
+    blobs) with 5 steps from it, and the pyngp ``render(width, height)``;
   * ``dynamic_phase``: the dynamic Testbed at the same width with the
     error map and its sharpness weighting on, over a 3-frame scene of a
     sphere moved by a known shift a frame: per-frame pose refinement (no
@@ -51,6 +56,8 @@ WARMUP_STEPS = 20
 PROFILE_STEPS = 20
 SCENE_RES = 256  # the synthetic scenes' image side
 TESTBED_STEPS = 200
+RESUME_STEPS = 20  # snapshot_phase: steps after a native resume
+REFERENCE_STEPS = 5  # and after a reference-format import
 DYNAMIC_FRAMES = 3
 DYNAMIC_STEPS = 200  # first_frame_ and next_frame_max_training_step
 # The known per-frame motion: base.json's delta lr (1e-4 a step and DoF)
@@ -487,6 +494,189 @@ def testbed_phase(torch, st, cfg, hyper, steps: int = TESTBED_STEPS) -> dict:
         "meters": tb.meters.summary(),
     }
     print("testbed_phase " + json.dumps(out), flush=True)
+    return out, tb
+
+
+class LossRecorder:
+    """Wraps the Testbed module's ``train_step`` to keep each step's loss
+    tensor (no host sync), leaving the step as it is."""
+
+    def __init__(self, testbed_module):
+        self.module, self.step, self.losses = testbed_module, testbed_module.train_step, []
+
+    def __enter__(self):
+        def recorded(*args, **kw):
+            state, aux = self.step(*args, **kw)
+            self.losses.append(aux.loss)
+            return state, aux
+
+        self.module.train_step = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.module.train_step = self.step
+
+
+def snapshot_phase(torch, st, tb) -> dict:
+    """Snapshots and the pyngp surface on ``testbed_phase``'s trained
+    Testbed, as a user saves, resumes and renders a model:
+
+      * a full and an incremental native snapshot, the full one loaded
+        into a fresh card Testbed: every leaf (the step generator's state
+        too) and ``render(img_idx=0)`` bitwise the original's;
+      * RESUME_STEPS more steps on the original and on the resumed
+        Testbed, counts reset before each: kernel 1 once a step, finite
+        losses, the losses and the final states bitwise equal;
+      * a reference-format export loaded into a third Testbed and exported
+        again: ``n_params`` as ``ngp_n_params`` says, both blobs byte-equal,
+        then REFERENCE_STEPS steps from it, kernel 1 once a step;
+      * ``render(256, 256, 4)`` at training view 1's camera (the views are
+        SCENE_RES^2) within 1e-5 of
+        ``render(img_idx=1, spp=4)``, and one ``render(512, 512, 1)`` from
+        an orbit pose, timed with CUDA events and on the host clock."""
+    import numpy as np
+
+    from neus2_tpu_torch import interop
+    from neus2_tpu_torch.api import msgpack_codec
+    from neus2_tpu_torch.api import testbed as testbed_mod
+    from neus2_tpu_torch.api.ngp_snapshot import ngp_n_params, save_reference_snapshot
+    from neus2_tpu_torch.data.dataset import ngp_matrix_to_nerf
+    from neus2_tpu_torch.data.synthetic import make_sphere_dataset
+    from neus2_tpu_torch.utils.camera_path import orbit_path
+
+    # The bucket is host state no snapshot holds, in either package.
+    bucket_fields = ("batch_bucket", "_occ_len_ema", "_bucket_votes", "_bucket_vote_target",
+                     "last_aux")
+    print("snapshot_phase departures: the resumed Testbed takes the original's host-only "
+          f"batch-bucket state {list(bucket_fields)} before the resumed steps", flush=True)
+
+    def fresh():
+        t = testbed_mod.Testbed(config=tb.config, hyper=dataclasses.replace(tb.hyper),
+                                seed=tb.seed, device="cuda")
+        t.load_training_data_from_datasets(
+            [make_sphere_dataset(n_views=16, resolution=SCENE_RES, seed=0)])
+        return t
+
+    def same_leaves(a, b, what):
+        x, y = interop.state_to_pathdict(a.state), interop.state_to_pathdict(b.state)
+        if x.keys() != y.keys():
+            raise AssertionError(f"{what}: the leaf keys differ")
+        for k in x:
+            if x[k].dtype != y[k].dtype or not np.array_equal(x[k], y[k]):
+                raise AssertionError(f"{what}: leaf {k} differs")
+        return len(x)
+
+    def train_on(t, steps):
+        t.first_frame_max_training_step = t.training_step + steps
+        torch.cuda.synchronize()
+        reset_launches(st)
+        with LossRecorder(testbed_mod) as rec:
+            while t.frame():
+                pass
+        torch.cuda.synchronize()
+        launches = st.segment_sum_rows.launches
+        if launches != steps or len(rec.losses) != steps:
+            raise AssertionError(f"{steps} steps: {len(rec.losses)} trained, {launches} "
+                                 "kernel-1 launches")
+        if not all(bool(torch.isfinite(v)) for v in rec.losses):
+            raise AssertionError("non-finite resumed losses")
+        return rec.losses, launches
+
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        full, inc = Path(d) / "full.msgpack", Path(d) / "incremental.msgpack"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tb.save_snapshot(full)
+        out["save_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tb.save_snapshot(inc, incremental=True)
+        out["save_incremental_s"] = time.perf_counter() - t0
+        out["full_mb"], out["incremental_mb"] = full.stat().st_size / 1e6, inc.stat().st_size / 1e6
+        resumed = fresh()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        resumed.load_snapshot(full)
+        torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t0
+        out["leaves"] = same_leaves(tb, resumed, "native round trip")
+        resumed.prepare_for_test()
+        for a, b in zip(tb.render(img_idx=0), resumed.render(img_idx=0)):
+            if not np.array_equal(a, b):
+                raise AssertionError("native round trip: render(img_idx=0) differs")
+
+        for name in bucket_fields:
+            setattr(resumed, name, getattr(tb, name))
+        out["batch_bucket"] = tb.batch_bucket
+        original, n_orig = train_on(tb, RESUME_STEPS)
+        again, n_res = train_on(resumed, RESUME_STEPS)
+        if not all(torch.equal(a, b) for a, b in zip(original, again)):
+            raise AssertionError("resume: the losses differ from the original's")
+        same_leaves(tb, resumed, "resume")
+        out["resume"] = {"steps": RESUME_STEPS, "launches_original": n_orig,
+                         "launches_resumed": n_res, "losses": [float(v) for v in again]}
+        del resumed
+
+        ref, ref2 = Path(d) / "ref.msgpack", Path(d) / "ref2.msgpack"
+
+        def export(t, path):
+            save_reference_snapshot(
+                path, interop.tree_to_numpy(t.state.ema_params), t.config.field,
+                density_grid=t.state.occupancy.density.cpu().numpy(),
+                acc=interop.tree_to_numpy(t.state.acc), aabb_scale=t.config.aabb_scale,
+                training_step=t.training_step, loss=t.loss)
+            return msgpack_codec.unpackb(path.read_bytes())["snapshot"]
+
+        t0 = time.perf_counter()
+        doc = export(tb, ref)
+        out["reference_save_s"] = time.perf_counter() - t0
+        out["reference_mb"] = ref.stat().st_size / 1e6
+        imported = fresh()
+        t0 = time.perf_counter()
+        imported.load_snapshot(ref)
+        torch.cuda.synchronize()
+        out["reference_load_s"] = time.perf_counter() - t0
+        doc2 = export(imported, ref2)
+        want = ngp_n_params(tb.config.field)
+        if not doc["n_params"] == doc2["n_params"] == want:
+            raise AssertionError(f"reference n_params {doc['n_params']}, {doc2['n_params']}, "
+                                 f"ngp_n_params {want}")
+        for key in ("params_binary", "density_grid_binary"):
+            if doc[key] != doc2[key]:
+                raise AssertionError(f"reference re-export: {key} differs")
+        losses, n_ref = train_on(imported, REFERENCE_STEPS)
+        out["reference"] = {"n_params": want, "steps": REFERENCE_STEPS, "launches": n_ref,
+                            "losses": [float(v) for v in losses]}
+        del imported
+
+    tb.set_camera_to_training_view(1)
+    w, h = tb.dataset.resolution  # SCENE_RES^2
+    img = tb.render(w, h, 4)
+    rgb = tb.render(img_idx=1, spp=4)[0]
+    err = float(np.abs(img[..., :3] - rgb).max())
+    if img.shape != (h, w, 4) or not np.isfinite(img).all() or err > 1e-5:
+        raise AssertionError(f"pyngp render {img.shape}: max|diff| {err} against render(img_idx=1)")
+    kf = orbit_path().eval(0.125)
+    ds = tb.dataset
+    tb.set_nerf_camera_matrix(ngp_matrix_to_nerf(kf.pose, ds.scale,
+                                                 np.asarray(ds.offset, np.float32), ds.from_na))
+    tb.fov = kf.fov_deg
+    tb.screen_center = (0.5, 0.5)
+    tb.render(512, 512, 1)  # warm-up
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    orbit = tb.render(512, 512, 1)
+    end.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    if orbit.shape != (512, 512, 4) or not np.isfinite(orbit).all() or orbit[..., 3].max() < 0.5:
+        raise AssertionError(f"orbit render {orbit.shape}, max alpha {orbit[..., 3].max()}")
+    out["pyngp"] = {"view1_max_abs_err": err, "render_512_ms": start.elapsed_time(end),
+                    "render_512_host_ms": host_ms,
+                    "orbit_alpha_mean": float(orbit[..., 3].mean())}
+    print("snapshot_phase " + json.dumps(out), flush=True)
     return out
 
 
@@ -878,7 +1068,9 @@ def main() -> int:
     train, state = training_phase(torch, tt, st, cfg, images, cams)
     profile_phase(torch, tt, state, images, cams, cfg)
     del state, images, cams
-    tb = testbed_phase(torch, st, cfg, hyper)
+    tb, testbed = testbed_phase(torch, st, cfg, hyper)
+    snap = snapshot_phase(torch, st, testbed)
+    del testbed
     dyn = dynamic_phase(torch, st, cfg, hyper)
 
     def entry(name, replaces, rec, rec_f8, launches, extra=()):
@@ -896,7 +1088,9 @@ def main() -> int:
                  tb["launches"]),
          "sort_ms": k1["sort_ms"], "launches_per_step": tb["launches_per_step"],
          "train_static_launches": train["launches"],
-         "dynamic_launches": dyn["launches_by_phase"]},
+         "dynamic_launches": dyn["launches_by_phase"],
+         "resume_launches": {"native": snap["resume"]["launches_resumed"],
+                             "reference": snap["reference"]["launches"]}},
     ] + [
         entry(name, replaces, sorted_k[name], sorted_f8[name], ops["launches"][name],
               extra=("entry_ms",))

@@ -11,8 +11,15 @@ frame 0's canonical field, then for each later frame refines the per-frame
 rigid delta alone for ``predict_global_movement_training_step`` steps and
 finetunes field and delta together; the phase flags (``train_canonical``,
 ``train_delta``, ``use_delta``) change only at those boundaries.
-Snapshots, envmap, multi-GPU and the pyngp camera surface are not ported
-yet and raise.
+
+Snapshots: ``save_snapshot`` / ``load_snapshot`` write and read the JAX
+package's native format (``pathdict-v1``, through the port's own msgpack
+codec), so a file either package writes loads into the other;
+``load_snapshot`` sends a reference-format file (a ``snapshot`` key) to
+``load_reference_snapshot``.  The pyngp surface (reference python_api.cu:
+317-616): the loss scalars, ``nerf`` / ``nerf.training``, the virtual
+render camera and ``render(width, height, spp, linear)``.  Envmap,
+distortion and multi-GPU are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -20,13 +27,19 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from neus2_tpu_torch import interop
+from neus2_tpu_torch.api import msgpack_codec, ngp_snapshot
+from neus2_tpu_torch.api.compat import NerfView
 from neus2_tpu_torch.constants import NERF_GRIDSIZE
-from neus2_tpu_torch.data.dataset import NerfDataset, list_frame_jsons, load_dataset
+from neus2_tpu_torch.data.dataset import (
+    NerfDataset, list_frame_jsons, load_dataset, nerf_matrix_to_ngp,
+)
 from neus2_tpu_torch.engine import error_map as emap
 from neus2_tpu_torch.engine import occupancy as occ
 from neus2_tpu_torch.engine.render import RenderConfig, render_image
@@ -45,11 +58,11 @@ from neus2_tpu_torch.engine.train import (
 from neus2_tpu_torch.models import delta as delta_mod
 from neus2_tpu_torch.models.field import FieldConfig, freeze_grid_into_base, init_field
 from neus2_tpu_torch.ops.hashgrid import HashGridConfig
-from neus2_tpu_torch.ops.image import sharpness_maps
+from neus2_tpu_torch.ops.image import sharpen_images, sharpness_maps
 from neus2_tpu_torch.utils.device import resolve_device
 from neus2_tpu_torch.utils.meters import Meters
 from neus2_tpu_torch.utils.optim import OptimConfig, adam_init, plain_adam_init
-from neus2_tpu_torch.utils.tree import tree_map
+from neus2_tpu_torch.utils.tree import tree_leaves, tree_map
 
 
 @dataclasses.dataclass
@@ -228,9 +241,18 @@ class Testbed:
         # budget is spent, before the switch to the next frame (per-frame
         # eval hook; reference run_dynamic.py:183-201).
         self.on_frame_complete = None
+        # The pyngp namespaces (reference python_api.cu:416-487).
+        self.nerf = NerfView(self)
         # Eval protocol: black background (reference m_background_color).
         self.background_color = np.array([0.0, 0.0, 0.0, 1.0], np.float32)
         self.rendering_min_transmittance = 1e-4
+        self._sharpen = 0.0
+        # The virtual render camera (reference m_camera / fov /
+        # screen_center): None renders through training view 0's camera.
+        self._render_pose = None  # (3, 4) camera-to-world, ngp convention
+        self._fov_deg = None  # ("xy", (fx, fy)) or ("iso", deg); None = dataset focal
+        self.fov_axis = 1  # reference m_fov_axis default (y)
+        self._screen_center = (0.5, 0.5)
 
     # -- data ---------------------------------------------------------------
 
@@ -258,12 +280,24 @@ class Testbed:
             self.dataset = self._datasets[idx]
         else:
             self.dataset = load_dataset(self.frame_jsons[idx], n_frames_cap)
-        self.images, self.cameras = self.dataset.to_device(self.device)
+        self.cameras = self.dataset.cameras(self.device)
         if self.config.include_sharpness_in_error:
             # Load-time sharpness grids (reference compute_sharpness,
             # nerf_loader.cu:129-178).
             sharp = torch.as_tensor(sharpness_maps(self.dataset.images), device=self.device)
             self.cameras = self.cameras._replace(sharpness=sharp)
+        self._refresh_images()
+
+    def _refresh_images(self):
+        """The device images from the dataset's host copy, through the
+        unsharp filter when ``nerf.sharpen`` is set (reference
+        nerf_loader.cu:808-825)."""
+        if self.dataset is None:
+            return
+        imgs = self.dataset.images
+        if self._sharpen > 0.0:
+            imgs = sharpen_images(np.asarray(imgs, np.float32), self._sharpen)
+        self.images = torch.as_tensor(imgs, device=self.device)
 
     def _derive_config(self):
         """Dataset-dependent config: the scene box, occupancy cascades,
@@ -317,6 +351,41 @@ class Testbed:
     @property
     def loss(self) -> float:
         return self.loss_scalar
+
+    @property
+    def ek_loss(self) -> float:
+        return self.ek_loss_scalar
+
+    @property
+    def mask_loss(self) -> float:
+        return self.mask_loss_scalar
+
+    @property
+    def n_params(self) -> int:
+        """Trainable parameter count (reference python_api n_params)."""
+        return sum(t.numel() for t in tree_leaves(self.state.params))
+
+    @property
+    def n_encoding_params(self) -> int:
+        """Hash-table parameter count (reference n_encoding_params)."""
+        return sum(t.numel() for k, v in self.state.params.items() if k.startswith("hashgrid")
+                   for t in tree_leaves(v))
+
+    @property
+    def first_frame_max_training_step(self) -> int:
+        return self.hyper.first_frame_max_training_step
+
+    @first_frame_max_training_step.setter
+    def first_frame_max_training_step(self, v: int):
+        self.hyper.first_frame_max_training_step = int(v)
+
+    @property
+    def next_frame_max_training_step(self) -> int:
+        return self.hyper.next_frame_max_training_step
+
+    @next_frame_max_training_step.setter
+    def next_frame_max_training_step(self, v: int):
+        self.hyper.next_frame_max_training_step = int(v)
 
     @property
     def all_training_time_frame(self) -> int:
@@ -499,6 +568,90 @@ class Testbed:
         self._load_frame(int(idx))
         self.prepare_for_test()
 
+    def reload_network_from_file(self, path: str | Path):
+        """Rebuild the config from a network-config json and draw a fresh
+        state, keeping the loaded training data (reference
+        reload_network_from_file)."""
+        self.config, self.hyper = config_from_json(path)
+        if self.dataset is not None:
+            self._derive_config()
+            self._init_state()
+            self.training_step = 0
+
+    # -- the virtual render camera --------------------------------------------
+
+    def set_nerf_camera_matrix(self, mat):
+        """The render camera from a nerf-convention 3x4 (or 4x4) matrix, a
+        row of a transforms.json (reference set_nerf_camera_matrix: the
+        dataset's scale and offset applied)."""
+        self._render_pose = nerf_matrix_to_ngp(
+            np.asarray(mat, np.float32), self.dataset.scale,
+            np.asarray(self.dataset.offset, np.float32), self.dataset.from_na)
+
+    def set_camera_to_training_view(self, i: int):
+        """Training view i's pose, field of view and principal point as the
+        render camera (reference set_camera_to_training_view)."""
+        i = int(i)
+        self._render_pose = self.cameras.poses[i].cpu().numpy()
+        # In float64, so that _focal_for gives the view's fp32 focal back to
+        # the bit at the view's own size (the JAX package's fp32 arctan2
+        # moves it by an ulp, which moves every ray).
+        res = np.asarray(self.dataset.resolution, np.float64)
+        f = self.cameras.focal[i].cpu().numpy().astype(np.float64)
+        self._fov_deg = ("xy", tuple(float(v) for v in np.degrees(2.0 * np.arctan2(0.5 * res, f))))
+        self._screen_center = tuple(float(v) for v in self.cameras.principal[i].cpu().numpy())
+
+    @property
+    def fov(self) -> float:
+        """Field of view along ``fov_axis``, degrees (reference fov)."""
+        return self.fov_xy[self.fov_axis]
+
+    @fov.setter
+    def fov(self, deg: float):
+        # One focal length (square pixels) from the fov_axis side, as the
+        # reference's relative focal length.
+        self._fov_deg = ("iso", float(deg))
+
+    @property
+    def fov_xy(self) -> tuple:
+        if self._fov_deg is not None and self._fov_deg[0] == "xy":
+            return tuple(self._fov_deg[1])
+        res = np.asarray(self.dataset.resolution, np.float32)
+        if self._fov_deg is not None:
+            f = 0.5 * res[self.fov_axis] / np.tan(np.radians(self._fov_deg[1]) / 2.0)
+            focal = np.array([f, f], np.float32)
+        else:
+            focal = self.cameras.focal[0].cpu().numpy()
+        return tuple(float(v) for v in np.degrees(2.0 * np.arctan2(0.5 * res, focal)))
+
+    @fov_xy.setter
+    def fov_xy(self, xy):
+        self._fov_deg = ("xy", (float(xy[0]), float(xy[1])))
+
+    @property
+    def screen_center(self) -> tuple:
+        return self._screen_center
+
+    @screen_center.setter
+    def screen_center(self, c):
+        self._screen_center = (float(c[0]), float(c[1]))
+
+    def _focal_for(self, resolution) -> np.ndarray:
+        """The render camera's focal length in pixels at (W, H)."""
+        W, H = resolution
+        res = np.array([W, H], np.float32)
+        if self._fov_deg is None:
+            # View 0's field of view: its pixel focal scaled by the output /
+            # dataset size ratio along fov_axis.
+            base = self.cameras.focal[0].cpu().numpy()
+            return base * (res[self.fov_axis] / float(self.dataset.resolution[self.fov_axis]))
+        if self._fov_deg[0] == "iso":
+            f = 0.5 * res[self.fov_axis] / np.tan(np.radians(self._fov_deg[1]) / 2.0)
+            return np.array([f, f], np.float32)
+        fx, fy = self._fov_deg[1]
+        return np.array([0.5 * W / np.tan(np.radians(fx) / 2.0),
+                         0.5 * H / np.tan(np.radians(fy) / 2.0)], np.float32)
+
     @property
     def effective_acc(self):
         """The rigid transform renders apply: the accumulated one, composed
@@ -525,11 +678,21 @@ class Testbed:
     def render(self, *args, img_idx: int | None = None, spp: int = 1, background=None,
                render_cfg: RenderConfig | None = None, use_ema: bool = True,
                linear: bool = False, mode: str = "shade"):
-        """Render training view ``img_idx`` at its resolution ->
-        (rgb (H, W, 3), depth (H, W), alpha (H, W)) numpy arrays.  The
-        pyngp form ``render(width, height, ...)`` is not ported yet."""
+        """Two call forms, told apart by the number of positional arguments:
+
+        * ``render(width, height[, spp[, linear]])``: the reference's pybind
+          signature (python_api.cu:317): the current render camera at that
+          size over ``background_color`` -> one (H, W, 4) RGBA array
+          (``linear`` turns the sRGB colour back into linear radiance);
+        * ``render(i)`` / ``render(img_idx=i, ...)``: training view ``i`` at
+          its resolution -> (rgb (H, W, 3), depth (H, W), alpha (H, W)).
+
+        Both draw their jitter from a generator seeded 7."""
         if len(args) >= 2:
-            raise NotImplementedError("render(width, height, ...) is not ported yet")
+            return self._render_current_camera(
+                int(args[0]), int(args[1]), spp=int(args[2]) if len(args) > 2 else spp,
+                linear=bool(args[3]) if len(args) > 3 else linear, render_cfg=render_cfg,
+                use_ema=use_ema, mode=mode)
         if args:
             img_idx = int(args[0])
         img_idx = 0 if img_idx is None else img_idx
@@ -549,6 +712,31 @@ class Testbed:
 
             rgb = srgb_to_linear(rgb)
         return rgb.cpu().numpy(), depth.cpu().numpy(), alpha.cpu().numpy()
+
+    def _render_current_camera(self, width: int, height: int, spp: int = 1,
+                               linear: bool = False, render_cfg: RenderConfig | None = None,
+                               use_ema: bool = True, mode: str = "shade") -> np.ndarray:
+        """The pyngp render: the current camera, RGBA out."""
+        cfg = render_cfg or self._default_render_cfg()
+        params = self.state.ema_params if use_ema else self.state.params
+        cams = self.cameras
+        pose = (cams.poses[0] if self._render_pose is None
+                else torch.as_tensor(self._render_pose, dtype=torch.float32, device=self.device))
+        f32 = dict(dtype=torch.float32, device=self.device)
+        with self.meters.scope("render"):
+            rgb, _, alpha = render_image(
+                params, self.effective_acc, self.state.occupancy, cams, pose,
+                torch.as_tensor(self._focal_for((width, height)), **f32),
+                torch.as_tensor(self._screen_center, **f32),
+                torch.Generator(device=self.device).manual_seed(7), cfg,
+                background=self.background_color[:3], spp=int(spp) or 1, mode=mode,
+                resolution=(int(width), int(height)),
+            )
+        if linear:
+            from neus2_tpu_torch.ops.losses import srgb_to_linear
+
+            rgb = srgb_to_linear(rgb)
+        return torch.cat([rgb, alpha[..., None]], -1).cpu().numpy()
 
     def compute_and_save_marching_cubes_mesh(
         self, path: str | Path, resolution: int = 256, thresh: float = 0.0,
@@ -590,3 +778,115 @@ class Testbed:
             save_mesh_obj(path, verts, tris, scale=self.dataset.scale,
                           offset=self.dataset.offset, normals=normals)
         return verts, tris
+
+    # -- snapshots --------------------------------------------------------------
+
+    def save_snapshot(self, path: str | Path, incremental: bool = False):
+        """Write the training state in the JAX package's native format
+        (``pathdict-v1``; reference save_snapshot, testbed.cu:3144-3196).
+        An incremental snapshot leaves out both optimizers' states, which
+        each frame starts afresh (testbed.cu:3180).  The adaptive batch
+        bucket is host state no snapshot holds, in either package.  The
+        file is written beside ``path`` and then renamed over it, so a
+        write cut short never leaves a broken resume point."""
+        payload = {
+            "leaves": interop.state_to_pathdict(self.state, incremental),
+            "format": "pathdict-v1",
+            "incremental": bool(incremental),
+            "meta": {
+                "training_step": np.int32(self.training_step),
+                "frame": np.int32(self.current_training_time_frame),
+                "aabb_scale": np.int32(self.config.aabb_scale),
+            },
+        }
+        path = Path(path)
+        tmp = path.with_name(path.name + ".tmp")
+        tmp.write_bytes(msgpack_codec.packb(payload))
+        os.replace(tmp, path)
+
+    def load_snapshot(self, path: str | Path):
+        """Restore a native snapshot, from either package: every leaf the
+        file holds, in this state's dtypes and on its device; a leaf it
+        lacks keeps its current value (named once).  A file without the
+        step generator's state (one the JAX package wrote) reseeds the
+        generator from the Testbed's seed.  The counters and the dynamic
+        phase flags follow the file's meta block."""
+        payload = msgpack_codec.unpackb(Path(path).read_bytes())
+        if isinstance(payload, dict) and "snapshot" in payload:
+            return self.load_reference_snapshot(path)
+        if not isinstance(payload, dict) or payload.get("format") != "pathdict-v1":
+            raise ValueError(
+                f"{path}: not a path-keyed ('pathdict-v1') snapshot; the legacy "
+                "positional-list format is read only by the JAX package")
+        state, missing = interop.state_from_pathdict(
+            payload["leaves"], self._state_or_fresh(), bool(payload.get("incremental", False)))
+        if ".generator" in missing:
+            missing.remove(".generator")
+            state = state._replace(
+                generator=torch.Generator(device=self.device).manual_seed(self.seed + 1))
+            print(f"load_snapshot: {path} holds no step-generator state for "
+                  f"{self.device.type}; seeded it from the Testbed's seed", flush=True)
+        if missing:
+            print(f"load_snapshot: {len(missing)} state fields absent from the snapshot "
+                  f"kept at current values (e.g. {missing[:3]})", flush=True)
+        self.state = state
+        meta = payload.get("meta", {})
+        self.training_step = int(meta.get("training_step", 0))
+        self.current_training_time_frame = int(meta.get("frame", 0))
+        self._restore_phase_flags()
+
+    def load_reference_snapshot(self, path: str | Path):
+        """Load a reference-format snapshot (``api/ngp_snapshot.py``): its
+        params, the reference's EMA'd inference values (trainer.h:281-292),
+        into both ``params`` and ``ema_params``; its Morton-decoded density
+        grid into the occupancy state; its accumulated transform.  Adam
+        starts fresh: the file holds none of the reference's."""
+        out = ngp_snapshot.load_reference_snapshot(path, self.config.field)
+        st = self._state_or_fresh()
+
+        def like(t, r):
+            return torch.tensor(np.asarray(r), dtype=t.dtype, device=t.device)
+
+        params = tree_map(like, st.params, out["params"])
+        changes = {"params": params, "ema_params": params, "opt_state": adam_init(params)}
+        grid = out["density_grid"]
+        if grid is not None:
+            if grid.shape == tuple(st.occupancy.density.shape):
+                changes["occupancy"] = occ.update_bitfield(
+                    st.occupancy._replace(density=torch.as_tensor(grid, device=self.device)))
+            else:
+                print(f"load_reference_snapshot: density grid {grid.shape} does not match "
+                      f"the configured occupancy {tuple(st.occupancy.density.shape)}; "
+                      "keeping the current grid", flush=True)
+        if out["acc"] is not None:
+            changes["acc"] = tree_map(like, st.acc, out["acc"])
+        self.state = st._replace(**changes)
+        self.training_step = out["training_step"]
+        self.loss_scalar = out["loss"]
+        self._restore_phase_flags()
+
+    def _state_or_fresh(self):
+        """The state a snapshot is loaded into: the current one, or a fresh
+        one for a Testbed that has loaded no scene."""
+        if self.state is None:
+            self.state = init_train_state(
+                self.config, self.dataset.n_images if self.dataset else 1, seed=self.seed,
+                device=self.device)
+        return self.state
+
+    def _restore_phase_flags(self):
+        """Replay the dynamic phase machine from the restored counters: the
+        phase flags are host state the frame index and step determine (the
+        reference re-derives them in train(), testbed.cu:2659-2667).  A
+        frame >= 1 of a dynamic scene also needs its own dataset."""
+        frame = self.current_training_time_frame
+        predict = bool(self.hyper.predict_global_movement)
+        if frame == 0:
+            self.train_canonical, self.train_delta, self.use_delta = True, False, False
+            return
+        in_refine = predict and self.training_step < self.hyper.predict_global_movement_training_step
+        self.train_canonical = not in_refine
+        self.train_delta = predict and (in_refine or bool(self.hyper.finetune_global_movement))
+        self.use_delta = predict
+        if self.dataset is not None and self.is_dynamic:
+            self._load_frame(frame)

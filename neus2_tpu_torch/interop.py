@@ -10,6 +10,11 @@ keeps on the host (Adam ``count``, occupancy ``ema_step``, ``step``,
 ``frame_step``) become Python integers.  The way back fills a JAX state
 given as a template (``like``), so this module needs none of the JAX
 package's types.
+
+``state_to_pathdict`` / ``state_from_pathdict`` carry a state to and from
+the JAX package's native snapshot format (``pathdict-v1``): host arrays
+keyed by the strings JAX's ``tree_util.keystr`` gives the JAX state's
+leaves, so a snapshot either package writes loads into the other.
 """
 
 from __future__ import annotations
@@ -29,6 +34,123 @@ from neus2_tpu_torch.utils.optim import plain_adam_init
 from neus2_tpu_torch.utils.tree import tree_map
 
 _PARAM_KEYS = ("hashgrid", "hashgrid_base", "sdf_mlp", "rgb_mlp", "variance")
+
+
+_OPTIMIZER_PARTS = (".opt_state", ".delta_opt_state")
+
+
+def _state_parts(state: TrainState) -> list[tuple[str, Any, bool]]:
+    """(key prefix, subtree, whether its top level is attribute-style) of
+    each part of the state, under the names JAX's ``tree_util.keystr``
+    gives the JAX ``TrainState``'s leaves: dict keys as ``['k']``, list items as
+    ``[i]``, NamedTuple fields as ``.f``.  The delta's Adam is the first of
+    the JAX package's (ScaleByAdamState, EmptyState) pair, so its fields
+    sit under ``[0]``."""
+    return [
+        (".params", state.params, False),
+        (".ema_params", state.ema_params, False),
+        (".opt_state", state.opt_state, False),
+        (".delta", state.delta, False),
+        (".delta_opt_state[0]", state.delta_opt_state, True),
+        (".acc", state.acc, False),
+        (".occupancy", state.occupancy._asdict(), True),
+        (".error_map", state.error_map._asdict(), True),
+        (".step", state.step, False),
+        (".frame_step", state.frame_step, False),
+    ]
+
+
+def _key(prefix: str, k, attr: bool) -> str:
+    if isinstance(k, int):
+        return f"{prefix}[{k}]"
+    return f"{prefix}.{k}" if attr else f"{prefix}[{k!r}]"
+
+
+def _walk(tree: Any, prefix: str, attr: bool = False):
+    """(key, leaf) pairs; None leaves (an absent sharpness grid) have no key."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _walk(tree[k], _key(prefix, k, attr))
+    elif isinstance(tree, (list, tuple)):
+        for i, t in enumerate(tree):
+            yield from _walk(t, _key(prefix, i, attr))
+    elif tree is not None:
+        yield prefix, tree
+
+
+def state_to_pathdict(state: TrainState, incremental: bool = False) -> dict[str, np.ndarray]:
+    """The state's leaves as host arrays keyed by the JAX package's key
+    strings (``.params['hashgrid'][3]``, ``.occupancy.density``, ...).
+    Host counters become 0-d int32 arrays, as JAX leaves them; the step
+    generator's state goes under ``.generator``, a key of the port's own
+    (the JAX ``.key`` is a (2,) uint32 threefry key).  ``incremental``
+    leaves out both optimizers' states."""
+    out = {}
+    for prefix, tree, attr in _state_parts(state):
+        if incremental and prefix.startswith(_OPTIMIZER_PARTS):
+            continue
+        for key, leaf in _walk(tree, prefix, attr):
+            out[key] = (leaf.detach().cpu().numpy() if torch.is_tensor(leaf)
+                        else np.array(leaf, np.int32))
+    out[".generator"] = state.generator.get_state().numpy()
+    return out
+
+
+def _leaf_like(value, like, key: str):
+    """A stored array as the template leaf's type, dtype, shape and device."""
+    arr = np.asarray(value)
+    if not torch.is_tensor(like):
+        return int(arr)
+    if arr.shape != tuple(like.shape):
+        raise ValueError(f"snapshot leaf {key} has shape {arr.shape}, the state "
+                         f"{tuple(like.shape)}")
+    host = torch.from_numpy(arr.astype(torch.empty((), dtype=like.dtype).numpy().dtype))
+    return host.to(like.device)
+
+
+def _fill(tree: Any, prefix: str, flat: dict, missing: list, attr: bool = False) -> Any:
+    if isinstance(tree, dict):
+        return {k: _fill(v, _key(prefix, k, attr), flat, missing) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_fill(t, _key(prefix, i, attr), flat, missing)
+                          for i, t in enumerate(tree))
+    if tree is None:
+        return None
+    if prefix not in flat:
+        missing.append(prefix)
+        return tree
+    return _leaf_like(flat[prefix], tree, prefix)
+
+
+def state_from_pathdict(flat: dict, like: TrainState,
+                        incremental: bool = False) -> tuple[TrainState, list[str]]:
+    """``like`` with every leaf that ``flat`` (keyed as
+    ``state_to_pathdict`` keys) holds, each in ``like``'s dtype and on its
+    device -> (state, the keys ``flat`` lacked, whose leaves keep ``like``'s
+    values).  Keys ``like`` has no leaf for are ignored, as the JAX
+    loader ignores them.  ``incremental`` keeps ``like``'s optimizer states.
+    A generator state of another device type counts as missing."""
+    missing: list[str] = []
+    parts = {}
+    for prefix, tree, attr in _state_parts(like):
+        skip = incremental and prefix.startswith(_OPTIMIZER_PARTS)
+        parts[prefix] = tree if skip else _fill(tree, prefix, flat, missing, attr)
+    generator = like.generator
+    stored = flat.get(".generator")
+    if stored is not None and np.asarray(stored).size == generator.get_state().numel():
+        generator = torch.Generator(device=generator.device)
+        generator.set_state(torch.from_numpy(np.array(stored, np.uint8)))
+    else:
+        missing.append(".generator")
+    state = TrainState(
+        params=parts[".params"], ema_params=parts[".ema_params"],
+        opt_state=parts[".opt_state"], delta=parts[".delta"],
+        delta_opt_state=parts[".delta_opt_state[0]"], acc=parts[".acc"],
+        occupancy=OccupancyGrid(**parts[".occupancy"]),
+        error_map=ErrorMapState(**parts[".error_map"]),
+        step=parts[".step"], frame_step=parts[".frame_step"], generator=generator,
+    )
+    return state, missing
 
 
 def tree_to_torch(tree: Any, device="cpu") -> Any:

@@ -77,6 +77,15 @@ class HashGridConfig:
         return resolutions, scales, offsets, sizes, use_hash
 
     @property
+    def n_table_entries(self) -> int:
+        _, _, offsets, sizes, _ = self.level_tables()
+        return offsets[-1] + sizes[-1]
+
+    @property
+    def n_params(self) -> int:
+        return self.n_table_entries * self.n_features_per_level
+
+    @property
     def output_dim(self) -> int:
         return self.n_levels * self.n_features_per_level
 

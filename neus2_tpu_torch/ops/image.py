@@ -2,7 +2,8 @@
 (port of ``neus2_tpu/ops/image.py``:14-77 and :106; reference
 scripts/common.py:46 mse2psnr, :201-266 SSIM with an 11x11 Gaussian window,
 scripts/run.py:264-344), and the load-time sharpness maps of the error
-map's sharpness weighting.
+map's sharpness weighting and the unsharp filter of ``nerf.sharpen``
+(``neus2_tpu/ops/image.py``:80).
 
 PSNR = -10 log10(MSE) on clipped sRGB renders; SSIM is the mean over an
 (H, W, C) pair of the 11x11 Gaussian-window statistics, computed with a
@@ -71,6 +72,22 @@ def srgb_eval_target(tex: torch.Tensor) -> torch.Tensor:
     safe = torch.where(a > 0, a, torch.ones_like(a))
     return torch.where(a > 0, linear_to_srgb(tex[..., :3] / safe) * a,
                        torch.zeros_like(tex[..., :3]))
+
+
+def sharpen_images(images: np.ndarray, amount: float) -> np.ndarray:
+    """The reference's load-time unsharp filter on (N, H, W, C) host images
+    (sharpen kernel, nerf_loader.cu:103-123, 808-825):
+    max(0, (c p - left - up - right - down) / (c - 4)) with the centre
+    weight c = 4 + 1 / amount (5 strong ... inf none).  Edge pixels clamp
+    per axis (the reference's flat-index arithmetic wraps rows at the
+    border: a quirk, not a contract)."""
+    if amount <= 0.0:
+        return images
+    center_w = 4.0 + 1.0 / amount
+    p = np.pad(images.astype(np.float32), ((0, 0), (1, 1), (1, 1), (0, 0)), mode="edge")
+    out = (center_w * images - p[:, :-2, 1:-1] - p[:, 2:, 1:-1] - p[:, 1:-1, :-2]
+           - p[:, 1:-1, 2:]) * (1.0 / (center_w - 4.0))
+    return np.maximum(out, 0.0).astype(images.dtype)
 
 
 def sharpness_maps(images, resolution: tuple[int, int] = (128, 72)) -> np.ndarray:

@@ -10,12 +10,20 @@ Usage:
       --save_mesh --test_transforms data/scan24/transforms_test.json
   python -m neus2_tpu_torch.run --scene data/dynamic_scene_dir/ --name dyn1 \\
       --next_frame_steps 1000 --dynamic_save_mesh --eval_per_frame
+  python -m neus2_tpu_torch.run --scene data/scan24/transforms.json \\
+      --network configs/base.json --snapshot output/exp1/checkpoints/final.msgpack \\
+      --no_train --test_transforms data/scan24/transforms_test.json \\
+      --save_eval_images --render_path orbit --screenshot_transforms <json>
 
-A dynamic scene writes ``checkpoints/transform_{k}.txt`` (the accumulated
-rigid transform) when frame k finishes and for the last frame.  Runs on
-the card unless ``--device cpu`` is given.  Snapshots (the per-frame ones
-of dynamic scenes too), multi-GPU and the sdf and image modes are not
-ported yet.
+Training writes ``checkpoints/final.msgpack`` (and ``<step>.msgpack``
+every ``--save_snapshot_every`` steps), in the JAX package's native
+format, so either package's CLI resumes from the other's.  A dynamic scene
+writes ``checkpoints/frame_{k}.msgpack`` (incremental: no optimizer state)
+and ``checkpoints/transform_{k}.txt`` (the accumulated rigid transform)
+when frame k finishes, and the transform for the last frame.  Runs on the
+card unless ``--device cpu`` is given.  Multi-GPU, the sdf and image modes
+and the mesh diagnostics (``--shaded_mesh``, ``--ref_mesh``,
+``--save_density_png``, ``--grid_stats``) are not ported yet.
 """
 
 from __future__ import annotations
@@ -55,9 +63,27 @@ def parse_args(argv=None):
     p.add_argument("--eval_per_frame", action="store_true",
                    help="dynamic scenes: log view 0's PSNR when each frame finishes")
     p.add_argument("--eval_spp", type=int, default=8)
+    p.add_argument("--save_eval_images", action="store_true",
+                   help="write each eval view's render | GT | 4 |render - GT| panel as a PNG")
+    p.add_argument("--screenshot_transforms", default=None,
+                   help="render the views of this transforms json to PNGs")
+    p.add_argument("--screenshot_dir", default=None,
+                   help="output dir for --screenshot_transforms "
+                        "(default <output_dir>/<name>/screenshots)")
+    p.add_argument("--screenshot_spp", type=int, default=16)
+    p.add_argument("--screenshot_frames", nargs="*", type=int, default=None,
+                   help="the view indices to render (default: all)")
+    p.add_argument("--render_path", default=None,
+                   help="render PNG frames along a camera path: a CameraPath json, or "
+                        "'orbit' for a circular orbit")
+    p.add_argument("--render_n_frames", type=int, default=60)
     p.add_argument("--device", default="cuda", help="torch device (default: the card)")
     p.add_argument("--mode", choices=("nerf", "sdf", "image"), default="nerf")
-    p.add_argument("--snapshot", default=None, help="load a snapshot before training")
+    p.add_argument("--snapshot", default=None,
+                   help="load a snapshot (native, from either package, or reference format) "
+                        "after the scene")
+    p.add_argument("--save_snapshot_every", type=int, default=0)
+    p.add_argument("--no_train", action="store_true")
     p.add_argument("--multichip", choices=("auto", "on", "off"), default="auto")
     return p.parse_args(argv)
 
@@ -66,8 +92,6 @@ def main(argv=None):
     args = parse_args(argv)
     if args.mode != "nerf":
         raise NotImplementedError(f"--mode {args.mode} is not ported yet")
-    if args.snapshot:
-        raise NotImplementedError("snapshots are not ported yet")
     if args.multichip == "on":
         raise NotImplementedError("multi-GPU training is not ported yet")
 
@@ -107,34 +131,14 @@ def main(argv=None):
         sys.exit(2)
     log(f"{tb.dataset.n_images} images @ {tb.dataset.resolution}, "
         f"{tb.all_training_time_frame} time frame(s), device={tb.device}")
-    if tb.is_dynamic:
-        log("per-frame snapshots are skipped: snapshots are not ported yet")
+    if args.snapshot:
+        tb.load_snapshot(args.snapshot)
+        log(f"restored snapshot {args.snapshot}")
     if args.eval_per_frame:
         tb.on_frame_complete = _make_per_frame_eval(log)
 
-    t0 = time.time()
-    step = last_frame = 0
-    while tb.frame():
-        step += 1
-        if tb.current_training_time_frame != last_frame:
-            # The switch has folded frame last_frame's delta into acc.
-            last_frame = tb.current_training_time_frame
-            log(f"-> time frame {last_frame} at step {step} [{time.time() - t0:.1f}s]")
-            tb.save_transform(out / "checkpoints" / f"transform_{last_frame - 1}.txt")
-            if args.dynamic_save_mesh:
-                mesh_path = out / "mesh" / f"frame_{last_frame - 1:04d}.obj"
-                tb.compute_and_save_marching_cubes_mesh(mesh_path,
-                                                        resolution=args.mesh_resolution)
-                log(f"  per-frame mesh -> {mesh_path}")
-        if step % 100 == 0:
-            log(f"step {step} (frame {tb.current_training_time_frame} local "
-                f"{tb.training_step}) loss={tb.loss_scalar:.5f} ek={tb.ek_loss_scalar:.5f} "
-                f"mask={tb.mask_loss_scalar:.5f} [{time.time() - t0:.1f}s]")
-    log(f"training done: {step} steps in {time.time() - t0:.1f}s")
-    if tb.is_dynamic:
-        # The last frame's delta is never folded; save_transform includes it.
-        tb.save_transform(out / "checkpoints"
-                          / f"transform_{tb.current_training_time_frame}.txt")
+    if not args.no_train:
+        train(tb, args, out, log)
     tb.prepare_for_test()
 
     if args.save_mesh:
@@ -144,8 +148,19 @@ def main(argv=None):
             mesh_path, resolution=args.mesh_resolution)
         log(f"mesh: {len(verts)} vertices, {len(tris)} triangles")
 
+    if args.render_path:
+        log(f"rendering {args.render_n_frames} frames along {args.render_path}")
+        render_camera_path(tb, args.render_path, args.render_n_frames, out / "frames",
+                           args.eval_spp, log)
+
+    if args.screenshot_transforms:
+        shot_dir = Path(args.screenshot_dir) if args.screenshot_dir else out / "screenshots"
+        screenshot(tb, args.screenshot_transforms, shot_dir, args.screenshot_spp,
+                   args.screenshot_frames, log)
+
     if args.test_transforms:
-        psnrs, ssims = evaluate(tb, args.test_transforms, args.eval_spp, log)
+        psnrs, ssims = evaluate(tb, args.test_transforms, args.eval_spp, log,
+                                save_dir=(out / "evaluation") if args.save_eval_images else None)
         metrics = {
             "psnr_mean": float(np.mean(psnrs)),
             "ssim_mean": float(np.mean(ssims)),
@@ -155,6 +170,112 @@ def main(argv=None):
             json.dump(metrics, f, indent=2)
         log(f"eval: PSNR {metrics['psnr_mean']:.2f} dB  SSIM {metrics['ssim_mean']:.4f}")
     return tb
+
+
+def train(tb, args, out: Path, log):
+    """``while tb.frame()`` with the CLI's outputs: a log line every 100
+    steps, ``<step>.msgpack`` every ``--save_snapshot_every`` steps and
+    ``final.msgpack`` at the end; for a dynamic scene, when frame k
+    finishes, its incremental snapshot, its transform and (with
+    ``--dynamic_save_mesh``) its canonical mesh."""
+    ckpt = out / "checkpoints"
+    t0 = time.time()
+    # From the frame a snapshot resumed in (the JAX CLI starts at 0, so a
+    # resume into frame k >= 1 rewrites frame 0's files with frame k's state).
+    step, last_frame = 0, tb.current_training_time_frame
+    while tb.frame():
+        step += 1
+        if tb.current_training_time_frame != last_frame:
+            # The switch has folded frame last_frame's delta into acc.
+            last_frame = tb.current_training_time_frame
+            log(f"-> time frame {last_frame} at step {step} [{time.time() - t0:.1f}s]")
+            tb.save_snapshot(ckpt / f"frame_{last_frame - 1}.msgpack", incremental=True)
+            tb.save_transform(ckpt / f"transform_{last_frame - 1}.txt")
+            if args.dynamic_save_mesh:
+                mesh_path = out / "mesh" / f"frame_{last_frame - 1:04d}.obj"
+                tb.compute_and_save_marching_cubes_mesh(mesh_path,
+                                                        resolution=args.mesh_resolution)
+                log(f"  per-frame mesh -> {mesh_path}")
+        if step % 100 == 0:
+            log(f"step {step} (frame {tb.current_training_time_frame} local "
+                f"{tb.training_step}) loss={tb.loss_scalar:.5f} ek={tb.ek_loss_scalar:.5f} "
+                f"mask={tb.mask_loss_scalar:.5f} [{time.time() - t0:.1f}s]")
+        if args.save_snapshot_every and step % args.save_snapshot_every == 0:
+            tb.save_snapshot(ckpt / f"{step}.msgpack")
+    log(f"training done: {step} steps in {time.time() - t0:.1f}s")
+    tb.save_snapshot(ckpt / "final.msgpack")
+    if tb.is_dynamic:
+        # The last frame's delta is never folded; save_transform includes it.
+        tb.save_transform(ckpt / f"transform_{tb.current_training_time_frame}.txt")
+
+
+def _write_png(path: Path, rgb) -> None:
+    """An (H, W, 3) image in [0, 1] (tensor or array) as an 8-bit PNG."""
+    from PIL import Image
+
+    if torch.is_tensor(rgb):
+        rgb = rgb.cpu().numpy()
+    Image.fromarray((np.clip(rgb, 0.0, 1.0) * 255).astype(np.uint8)).save(path)
+
+
+def _eval_render_config(tb):
+    from neus2_tpu_torch.engine.render import RenderConfig
+
+    return RenderConfig(field=tb.config.field, aabb_scale=tb.config.aabb_scale,
+                        min_transmittance=1e-4)
+
+
+def screenshot(tb, transforms: str, out_dir: Path, spp: int, frames, log):
+    """Render the views of a transforms json to PNGs (reference run.py
+    screenshot mode, scripts/run.py:46-49, 345-377)."""
+    from neus2_tpu_torch.data.dataset import load_dataset
+    from neus2_tpu_torch.engine.render import render_image
+
+    ds = load_dataset(transforms)
+    cams = ds.cameras(tb.device)
+    cfg = _eval_render_config(tb)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for i in (frames if frames else range(ds.n_images)):
+        rgb, _, _ = render_image(
+            tb.state.ema_params, tb.effective_acc, tb.state.occupancy, cams,
+            cams.poses[i], cams.focal[i], cams.principal[i],
+            torch.Generator(device=tb.device).manual_seed(i), cfg, background=0.0, spp=spp,
+        )
+        fp = out_dir / f"{i:04d}.png"
+        _write_png(fp, rgb)
+        log(f"  screenshot {fp}")
+
+
+def render_camera_path(tb, path_spec: str, n_frames: int, out_dir, spp: int, log) -> Path:
+    """PNG frames along a camera path (reference camera_path.cu's spline,
+    rendered headless): a CameraPath json, or "orbit" for a circular orbit
+    around the scene centre, at the dataset's resolution."""
+    from neus2_tpu_torch.engine.render import render_image
+    from neus2_tpu_torch.engine.rays import Cameras
+    from neus2_tpu_torch.utils.camera_path import CameraPath, orbit_path
+
+    path = orbit_path() if path_spec == "orbit" else CameraPath.load(path_spec)
+    w, h = tb.dataset.resolution
+    cfg = _eval_render_config(tb)
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    denom = n_frames if path.loop else max(n_frames - 1, 1)
+    f32 = dict(dtype=torch.float32, device=tb.device)
+    for k in range(n_frames):
+        kf = path.eval(k / denom)
+        focal = 0.5 * h / np.tan(0.5 * np.deg2rad(kf.fov_deg))
+        cams = Cameras(poses=torch.as_tensor(kf.pose, **f32)[None],
+                       focal=torch.full((1, 2), float(focal), **f32),
+                       principal=torch.full((1, 2), 0.5, **f32), resolution=(w, h))
+        rgb, _, _ = render_image(
+            tb.state.ema_params, tb.effective_acc, tb.state.occupancy, cams,
+            cams.poses[0], cams.focal[0], cams.principal[0],
+            torch.Generator(device=tb.device).manual_seed(k), cfg, background=0.0, spp=spp,
+        )
+        fp = out_dir / f"frame_{k:04d}.png"
+        _write_png(fp, rgb)
+        log(f"  rendered {fp}")
+    return out_dir
 
 
 def _make_per_frame_eval(log):
@@ -178,18 +299,19 @@ def _make_per_frame_eval(log):
     return hook
 
 
-def evaluate(tb, test_transforms: str, spp: int, log) -> tuple[list, list]:
+def evaluate(tb, test_transforms: str, spp: int, log, save_dir: Path | None = None
+             ) -> tuple[list, list]:
     """PSNR / SSIM on held-out views (reference run.py:251-344 protocol:
     black background, ``spp`` jittered passes, min transmittance 1e-4,
-    sRGB space)."""
+    sRGB space).  ``save_dir``: each view's render | GT | 4 |render - GT|
+    as ``view_{i:03d}.png`` (the reference's cal_psnr image dumps)."""
     from neus2_tpu_torch.data.dataset import load_dataset
-    from neus2_tpu_torch.engine.render import RenderConfig, render_image
+    from neus2_tpu_torch.engine.render import render_image
     from neus2_tpu_torch.ops.image import psnr, srgb_eval_target, ssim
 
     ds = load_dataset(test_transforms)
     images, cams = ds.to_device(tb.device)
-    cfg = RenderConfig(field=tb.config.field, aabb_scale=tb.config.aabb_scale,
-                       min_transmittance=1e-4)
+    cfg = _eval_render_config(tb)
     psnrs, ssims = [], []
     for i in range(ds.n_images):
         rgb, _, _ = render_image(
@@ -203,6 +325,10 @@ def evaluate(tb, test_transforms: str, spp: int, log) -> tuple[list, list]:
         psnrs.append(p)
         ssims.append(s)
         log(f"  view {i}: PSNR {p:.2f}  SSIM {s:.4f}")
+        if save_dir is not None:
+            save_dir.mkdir(parents=True, exist_ok=True)
+            _write_png(save_dir / f"view_{i:03d}.png",
+                       torch.cat([rgb, target, (rgb - target).abs() * 4], dim=1))
     return psnrs, ssims
 
 

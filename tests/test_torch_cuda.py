@@ -2,8 +2,9 @@
 their plain versions and on edge streams, the segment-sum op layer on the
 card against the CPU, one training step on the card against the same step
 on the CPU, a dynamic step in each phase (pose refinement, finetune) and
-the residual grid's freeze on the card against the CPU, and the error
-map's deposit, rebuild and sampling on the card against the CPU.
+the residual grid's freeze on the card against the CPU, the error
+map's deposit, rebuild and sampling on the card against the CPU and its
+deposit against itself, and a native snapshot's round trip on the card.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports neither JAX nor the JAX package, so it runs where they are absent;
@@ -544,3 +545,61 @@ def test_error_map_on_card_matches_cpu(cuda):
     gw, gg = em.sharpness_weight_and_update(grid.to(cuda), cells.to(cuda), sharp.to(cuda),
                                             valid.to(cuda))
     assert torch.equal(gw.cpu(), cw) and torch.equal(gg.cpu(), cg)
+
+
+def test_error_map_deposit_is_deterministic_on_card(cuda):
+    """The same deposit twice on the card: ``index_put_(accumulate=True)``
+    sums each cell's adds in a fixed order, or the two maps differ."""
+    from neus2_tpu_torch.engine import error_map as em
+
+    rng = np.random.default_rng(3)
+    n_img, n = 16, 1 << 17  # base.json's 2 x 4096 candidates x 16, into 16 maps
+    res = em.resolution_for(4096, n_img, 256)
+    state = _to(em.init_error_map(n_img, res), cuda)
+    img = torch.from_numpy(rng.integers(0, n_img, n)).to(cuda)
+    uv = torch.from_numpy(rng.uniform(0, 1, (n, 2)).astype(np.float32)).to(cuda)
+    loss = torch.from_numpy(rng.gamma(0.5, 1.0, n).astype(np.float32)).to(cuda)
+    first = em.deposit(state, img, uv, loss).error_map
+    for _ in range(3):
+        assert torch.equal(em.deposit(state, img, uv, loss).error_map, first)
+
+
+def test_native_snapshot_roundtrip_on_card(cuda, tmp_path):
+    """A card Testbed saved and loaded into a fresh one: every leaf and the
+    step generator's state bitwise, and both train on to the same bits."""
+    from neus2_tpu_torch import interop
+    from neus2_tpu_torch.api.testbed import Hyperparams, Testbed
+
+    def fresh():
+        tb = Testbed(dataclasses.replace(_small_config(), adaptive_batch=False),
+                     Hyperparams(first_frame_max_training_step=8), device=cuda)
+        tb.load_training_data_from_datasets([make_sphere_dataset(n_views=4, resolution=32)])
+        return tb
+
+    a = fresh()
+    for _ in range(4):
+        a.train()
+    a.save_snapshot(tmp_path / "a.msgpack")
+    a.save_snapshot(tmp_path / "a_inc.msgpack", incremental=True)
+    b = fresh()
+    b.load_snapshot(tmp_path / "a.msgpack")
+    saved, got = interop.state_to_pathdict(a.state), interop.state_to_pathdict(b.state)
+    assert saved.keys() == got.keys() and saved[".generator"].size == 16  # Philox seed + offset
+    for k in saved:
+        assert got[k].dtype == saved[k].dtype and np.array_equal(got[k], saved[k]), k
+    assert b.training_step == a.training_step == 4
+    assert all(t.device.type == "cuda" for t in tree_leaves(b.state.params))
+    for tb in (a, b):
+        while tb.frame():
+            pass
+    want, got = interop.state_to_pathdict(a.state), interop.state_to_pathdict(b.state)
+    for k in want:
+        assert np.array_equal(got[k], want[k]), k
+
+    c = fresh()
+    c.load_snapshot(tmp_path / "a_inc.msgpack")  # the optimizers stay fresh
+    got = interop.state_to_pathdict(c.state)
+    assert c.state.opt_state["count"] == 0 and c.training_step == 4
+    for k in saved:
+        if not k.startswith((".opt_state", ".delta_opt_state")):
+            assert np.array_equal(got[k], saved[k]), k

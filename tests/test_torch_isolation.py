@@ -1,4 +1,5 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, and
+"""The port stands alone: it imports neither JAX nor the JAX package, nor
+``flax``, ``msgpack`` or ``imageio``, which the card's machine lacks, and
 its entry points refuse to fall back to the CPU when CUDA is absent."""
 
 import json
@@ -25,8 +26,9 @@ def test_every_module_imports_without_jax():
         "import importlib, json, sys\n"
         f"for m in {MODULES!r}: importlib.import_module(m)\n"
         "print(json.dumps(sorted(k for k in sys.modules "
-        "if k == 'jax' or k.startswith(('jax.', 'optax', 'neus2_tpu.')) "
-        "or k == 'neus2_tpu')))\n"
+        "if k in ('jax', 'neus2_tpu', 'flax', 'msgpack', 'imageio') "
+        "or k.startswith(('jax.', 'optax', 'neus2_tpu.', 'flax.', 'msgpack.', "
+        "'imageio.')))))\n"
     )
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=PKG.parent)

@@ -16,12 +16,14 @@ either sign and change the topology).
 
 import dataclasses
 import json
+import math
 from pathlib import Path
 
 import jax
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from neus2_tpu.api.testbed import Hyperparams as JHyperparams
 from neus2_tpu.api.testbed import Testbed as JTestbed
@@ -33,7 +35,11 @@ from neus2_tpu.engine.train import TrainConfig as JTrainConfig
 from neus2_tpu.models.field import FieldConfig as JFieldConfig
 from neus2_tpu.ops.hashgrid import HashGridConfig as JGrid
 from neus2_tpu.ops.warp import scene_aabb as jaabb
+from neus2_tpu import run as jrun
+from neus2_tpu.utils import camera_path as jcamera_path
 from neus2_tpu_torch import interop, run
+from neus2_tpu_torch.api import msgpack_codec
+from neus2_tpu_torch.utils import camera_path
 from neus2_tpu_torch.data.synthetic import make_sphere_dataset
 from neus2_tpu_torch.engine.train import TrainConfig
 from neus2_tpu_torch.models.field import FieldConfig
@@ -114,10 +120,30 @@ def test_cli_dynamic_scene_writes_transforms_and_meshes(tmp_path, capsys):
     log = (out / "log.txt").read_text()
     assert "2 time frame(s)" in log and "-> time frame 1 at step 5" in log
     assert "frame 0 view-0 PSNR" in log and "frame 1 view-0 PSNR" in log
-    assert capsys.readouterr().out.count("per-frame snapshots are skipped") == 1
+    # Frame 0's snapshot is incremental (no optimizer state) and, like its
+    # transform, written after the switch's first step, as the JAX CLI
+    # writes it; the final one is whole.
+    frame0 = msgpack_codec.unpackb((out / "checkpoints" / "frame_0.msgpack").read_bytes())
+    assert frame0["incremental"] is True
+    assert (int(frame0["meta"]["frame"]), int(frame0["meta"]["training_step"])) == (1, 1)
+    assert not any(k.startswith(".opt_state") for k in frame0["leaves"])
+    final = msgpack_codec.unpackb((out / "checkpoints" / "final.msgpack").read_bytes())
+    assert final["incremental"] is False and int(final["meta"]["frame"]) == 1
+    assert int(final["meta"]["training_step"]) == 4
+    assert "per-frame snapshots are skipped" not in capsys.readouterr().out
+    # Resumed in frame 1, the loop writes no frame-0 files.
+    tb = run.main([
+        "--scene", str(scene), "--network", str(tmp_path / "net.json"), "--name", "resumed",
+        "--output_dir", str(tmp_path / "out"), "--n_steps", "4", "--next_frame_steps", "4",
+        "--n_rays", "64", "--samples_per_ray", "16", "--device", "cpu",
+        "--snapshot", str(out / "checkpoints" / "frame_0.msgpack"),
+    ])
+    assert (tb.current_training_time_frame, tb.training_step) == (1, 4)
+    assert sorted(p.name for p in (tmp_path / "out" / "resumed" / "checkpoints").iterdir()) == [
+        "final.msgpack", "transform_1.txt"]
 
 
-@pytest.mark.parametrize("flags", [["--mode", "sdf"], ["--snapshot", "x.msgpack"],
+@pytest.mark.parametrize("flags", [["--mode", "sdf"], ["--mode", "image"],
                                    ["--multichip", "on"]])
 def test_cli_unported_paths_raise(flags, tmp_path):
     with pytest.raises(NotImplementedError):
@@ -169,3 +195,78 @@ def interop_config(jcfg, tcfg):
     """The port config with the JAX Testbed's dataset-derived fields."""
     return dataclasses.replace(tcfg, **{k: getattr(jcfg, k) for k in (
         "aabb_scale", "occ_cascades", "n_candidates", "occ_n_probe")})
+
+
+def test_cli_snapshots_resume_and_render_outputs(scene_dir):
+    """Train with periodic snapshots, then resume the final one with
+    --no_train and write screenshots, a camera path and eval panels; the
+    resumed state evaluates exactly as the trained one did."""
+    d, test = scene_dir
+    common = ["--scene", str(d / "train" / "transforms.json"), "--network", str(d / "net.json"),
+              "--output_dir", str(d / "out"), "--n_rays", "256", "--samples_per_ray", "16",
+              "--test_transforms", str(test), "--eval_spp", "1", "--device", "cpu"]
+    tb = run.main([*common, "--name", "snap", "--n_steps", "8", "--save_snapshot_every", "4"])
+    ckpt = d / "out" / "snap" / "checkpoints"
+    assert sorted(p.name for p in ckpt.glob("*.msgpack")) == ["4.msgpack", "8.msgpack",
+                                                              "final.msgpack"]
+    trained = json.loads((d / "out" / "snap" / "metrics.json").read_text())
+
+    shots = d / "shots"
+    tb2 = run.main([*common, "--name", "resumed", "--snapshot", str(ckpt / "final.msgpack"),
+                    "--no_train", "--screenshot_transforms", str(test), "--screenshot_dir",
+                    str(shots), "--screenshot_spp", "1", "--screenshot_frames", "1",
+                    "--render_path", "orbit", "--render_n_frames", "2", "--save_eval_images"])
+    out = d / "out" / "resumed"
+    assert tb2.training_step == 8 and tb2.state.step == tb.state.step
+    assert not (out / "checkpoints" / "final.msgpack").exists()  # nothing trained
+    assert json.loads((out / "metrics.json").read_text()) == trained
+    assert [p.name for p in shots.glob("*.png")] == ["0001.png"]
+    assert np.asarray(Image.open(shots / "0001.png")).shape == (24, 24, 3)
+    assert sorted(p.name for p in (out / "frames").glob("*.png")) == ["frame_0000.png",
+                                                                      "frame_0001.png"]
+    panels = sorted((out / "evaluation").glob("*.png"))
+    assert [p.name for p in panels] == ["view_000.png", "view_001.png"]
+    assert np.asarray(Image.open(panels[0])).shape == (24, 72, 3)  # render | GT | 4 |diff|
+
+
+def test_jax_cli_snapshot_evaluated_by_port_cli(scene_dir):
+    """A JAX CLI run's final.msgpack, loaded by the port's CLI with
+    --no_train: each eval view's PSNR within what the render tolerance
+    (max |diff| <= 3e-4 a channel) allows around the JAX CLI's: an RMS
+    error e becomes one in [e - 3e-4, e + 3e-4]."""
+    d, test = scene_dir
+    common = ["--scene", str(d / "train" / "transforms.json"), "--network", str(d / "net.json"),
+              "--output_dir", str(d / "cross"), "--n_rays", "256", "--samples_per_ray", "16",
+              "--test_transforms", str(test), "--eval_spp", "1"]
+    jrun.main([*common, "--name", "jax", "--n_steps", "6"])
+    final = d / "cross" / "jax" / "checkpoints" / "final.msgpack"
+    tb = run.main([*common, "--name", "port", "--snapshot", str(final), "--no_train",
+                   "--device", "cpu"])
+    assert tb.training_step == 6
+    want = json.loads((d / "cross" / "jax" / "metrics.json").read_text())["psnr"]
+    got = json.loads((d / "cross" / "port" / "metrics.json").read_text())["psnr"]
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        rmse = 10.0 ** (-w / 20.0)
+        assert -20 * math.log10(rmse + 3e-4) <= g <= -20 * math.log10(rmse - 3e-4)
+
+
+def test_camera_path_matches_jax(tmp_path):
+    for ours, theirs in ((camera_path.orbit_path(), jcamera_path.orbit_path()),
+                         (camera_path.orbit_path(radius=2.0, n_keyframes=5, fov_deg=30.0),
+                          jcamera_path.orbit_path(radius=2.0, n_keyframes=5, fov_deg=30.0))):
+        assert ours.loop == theirs.loop and len(ours.keyframes) == len(theirs.keyframes)
+        for u in np.linspace(0.0, 1.0, 13):
+            a, b = ours.eval(float(u)), theirs.eval(float(u))
+            np.testing.assert_array_equal(a.pose, b.pose)
+            assert a.fov_deg == b.fov_deg
+    rng = np.random.default_rng(0)
+    kfs = [camera_path.Keyframe(np.hstack([np.linalg.qr(rng.normal(size=(3, 3)))[0],
+                                           rng.normal(size=(3, 1))]).astype(np.float32),
+                                float(rng.uniform(30, 60))) for _ in range(4)]
+    camera_path.CameraPath(keyframes=kfs).save(tmp_path / "path.json")
+    ours, theirs = (camera_path.CameraPath.load(tmp_path / "path.json"),
+                    jcamera_path.CameraPath.load(tmp_path / "path.json"))
+    for u in np.linspace(0.0, 1.0, 9):
+        np.testing.assert_array_equal(ours.eval(float(u)).pose, theirs.eval(float(u)).pose)
+
