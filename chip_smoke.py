@@ -32,7 +32,13 @@ runs them, with the launch counts set to 0 just before and read just after:
     error map and its sharpness weighting on, over a 3-frame scene of a
     sphere moved by a known shift a frame: per-frame pose refinement (no
     kernel-1 launch), then the finetune phase (one a step), a held-out
-    view scored per frame, the canonical mesh at the end.
+    view scored per frame, the canonical mesh at the end;
+  * ``camera_phase``: the static Testbed at the same width with the whole
+    learned camera group on (extrinsics, exposure and focal refinement,
+    the envmap and distortion grid, the per-ray max level, depth
+    supervision), loaded from files written with known camera errors:
+    kernel 1 once a step, the errors before and after, a held-out view and
+    a tonemapped render.
 
 Exits non-zero on any failure; the last line of a successful run is the
 device JSON, the line before it the ``kernels`` JSON.
@@ -67,6 +73,17 @@ DYNAMIC_SHIFT = (0.005, 0.0, 0.0)
 # frames >= 1 one in pose refinement (steps 0-49) and one in finetune.
 DYNAMIC_PROFILE_AT = (10, 100)
 PROFILE_WINDOW = 8
+CAMERA_STEPS = 300
+CAMERA_PROFILE_AT = 200  # host window, then the traced window, from this step
+# The camera phase's scene errors: per-view translation offsets and
+# exposure stops (both made zero-mean over the views), the stated focal.
+CAMERA_TRANS_SIGMA = 0.005
+CAMERA_EXPOSURE_STOPS = 0.3
+CAMERA_FOCAL_FACTOR = 1.02
+CAMERA_DEPTH_SCALE = 1e-4  # integer_depth_scale of the uint16 depth PNGs
+CAMERA_DEPARTURES = dict(optimize_extrinsics=True, optimize_exposure=True,
+                         optimize_focal_length=True, max_level_rand_training=True,
+                         use_envmap=True, use_distortion=True, depth_supervision_lambda=0.1)
 EVAL_SPP = 8
 MESH_RES = 256
 # The batched layouts' index padding past each level's M updates, as the
@@ -860,6 +877,204 @@ def dynamic_phase(torch, st, cfg, hyper) -> dict:
     return out
 
 
+def write_camera_scene(out_dir: Path, n_views: int, res: int, seed: int = 0) -> dict:
+    """The 16-view synthetic sphere scene as files a user would load:
+    ``transforms.json`` (from_na), RGBA PNGs and uint16 depth PNGs
+    (``integer_depth_scale`` CAMERA_DEPTH_SCALE, the analytic depth along
+    each true pixel ray), written with what the camera group should learn
+    put in: each view's translation offset by N(0, CAMERA_TRANS_SIGMA) an
+    axis, each view's linear texels scaled by 2^e, e ~ U[-0.3, 0.3] stops
+    (both zero-mean over the views), and the focal stated
+    CAMERA_FOCAL_FACTOR too long.  -> the json path and those errors."""
+    import numpy as np
+    from PIL import Image
+
+    from neus2_tpu_torch.data.dataset import ngp_matrix_to_nerf
+    from neus2_tpu_torch.data.synthetic import SPHERE_CENTER, SPHERE_RADIUS, make_sphere_dataset
+    from neus2_tpu_torch.data.synthetic import ray_sphere
+
+    ds = make_sphere_dataset(n_views=n_views, resolution=res, seed=seed)
+    rng = np.random.default_rng(seed)
+    trans = rng.normal(0.0, CAMERA_TRANS_SIGMA, (n_views, 3)).astype(np.float32)
+    trans -= trans.mean(0)
+    stops = rng.uniform(-CAMERA_EXPOSURE_STOPS, CAMERA_EXPOSURE_STOPS, n_views).astype(np.float32)
+    stops -= stops.mean()
+    u = (np.arange(res) + 0.5) / res
+    uu, vv = np.meshgrid(u, u)
+    offset = np.asarray(ds.offset, np.float32)
+    frames = []
+    for i in range(n_views):
+        pose, (fx, fy), (cx, cy) = ds.poses[i], ds.focal[i], ds.principal[i]
+        xy = np.stack([(uu - cx) * res / fx, (vv - cy) * res / fy], -1)
+        dirs = np.concatenate([xy, np.ones_like(xy[..., :1])], -1) @ pose[:, :3].T
+        dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+        hit, t = ray_sphere(pose[:, 3], dirs, SPHERE_CENTER, SPHERE_RADIUS)
+        depth = np.where(hit, np.round(t / (CAMERA_DEPTH_SCALE * ds.scale)), 0).astype(np.uint16)
+        Image.fromarray(depth).save(out_dir / f"depth_{i:03d}.png")
+        img = ds.images[i]
+        a = img[..., 3:4]
+        lin = np.where(a > 0, img[..., :3] / np.maximum(a, 1e-8), 0.0) * 2.0 ** stops[i]
+        srgb = np.where(lin <= 0.0031308, 12.92 * lin, 1.055 * np.power(
+            np.maximum(lin, 0.0031308), 1.0 / 2.4) - 0.055)
+        rgba = np.concatenate([np.clip(srgb, 0.0, 1.0), a], -1)
+        Image.fromarray((rgba * 255.0 + 0.5).astype(np.uint8)).save(out_dir / f"rgb_{i:03d}.png")
+        moved = pose.copy()
+        moved[:, 3] += trans[i]
+        mat = np.concatenate([ngp_matrix_to_nerf(moved, ds.scale, offset, True),
+                              [[0.0, 0.0, 0.0, 1.0]]])
+        f = CAMERA_FOCAL_FACTOR
+        frames.append({
+            "file_path": f"rgb_{i:03d}.png", "depth_path": f"depth_{i:03d}.png",
+            "transform_matrix": mat.tolist(),
+            "intrinsic_matrix": [[float(fx * f), 0.0, float(cx * res)],
+                                 [0.0, float(fy * f), float(cy * res)], [0.0, 0.0, 1.0]],
+        })
+    meta = {"from_na": True, "scale": ds.scale, "offset": offset.tolist(), "aabb_scale": 1,
+            "integer_depth_scale": CAMERA_DEPTH_SCALE, "frames": frames}
+    path = out_dir / "transforms.json"
+    path.write_text(json.dumps(meta))
+    return {"path": path, "trans": trans, "stops": stops}
+
+
+def camera_errors(cam: dict, truth: dict) -> dict:
+    """The camera group against the errors written into the scene, each
+    with its mean over the views removed (a common shift of the views, or
+    of their exposure, is the field's to take): the rms translation error
+    |offset + learned| and exposure error (stops + learned, the learned
+    exposure's mean over its channels), and the learned focal scale."""
+    import numpy as np
+
+    def rms_centred(x):
+        x = x - x.mean(0)
+        return float(np.sqrt((x * x).sum(-1).mean()) if x.ndim > 1 else np.sqrt((x * x).mean()))
+
+    trans = truth["trans"] + cam["trans"].detach().cpu().numpy()
+    stops = truth["stops"] + cam["exposure"].detach().cpu().numpy().mean(-1)
+    return {"translation_rms": rms_centred(trans), "exposure_rms_stops": rms_centred(stops),
+            "focal_scale": np.exp(cam["focal_ln"].detach().cpu().numpy()).tolist()}
+
+
+def camera_phase(torch, st, cfg, hyper, static_device_ms: float) -> dict:
+    """The static Testbed at full width with the whole camera group on, as
+    a user with a real capture runs it: ``write_camera_scene`` (16 views at
+    256^2 with translation, exposure and focal errors and depth maps),
+    ``load_training_data`` of its json, CAMERA_STEPS steps of ``while
+    tb.frame()``, then the camera group's errors against the written ones,
+    a held-out view at the eval protocol through the learned extras (at
+    the true focal, and at the stated one with the learned correction), and
+    ``render(256, 256, 1)`` with the learned envmap at exposure 0.5 and the
+    ACES curve.  Host ms a step over PROFILE_WINDOW steps from
+    CAMERA_PROFILE_AT, then device ms a step over as many traced.
+
+    Fails on a non-finite loss, on kernel-1 launches other than one a step,
+    on a camera group that did not move, and on a tonemapped render more
+    than 1e-6 from ``apply_output_tonemap`` of the identity render."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from neus2_tpu_torch.api import testbed as testbed_mod
+    from neus2_tpu_torch.data.synthetic import make_sphere_dataset
+    from neus2_tpu_torch.engine.render import RenderConfig, render_image
+    from neus2_tpu_torch.ops.image import psnr, srgb_eval_target, ssim
+    from neus2_tpu_torch.ops.tonemap import apply_output_tonemap
+
+    print("camera_phase departures from base.json: " + json.dumps(CAMERA_DEPARTURES), flush=True)
+    cfg = dataclasses.replace(cfg, **CAMERA_DEPARTURES)
+    hyper = dataclasses.replace(hyper, first_frame_max_training_step=CAMERA_STEPS)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        truth = write_camera_scene(Path(d), 16, SCENE_RES)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tb = testbed_mod.Testbed(config=cfg, hyper=hyper, seed=0, device="cuda")
+        tb.load_training_data(truth["path"])
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    if tb.depths is None or not tb.config.use_distortion:
+        raise AssertionError("camera phase: the depth maps or the camera group did not load")
+    cam0 = {k: v.clone() for k, v in tb.state.cam.items()}
+    before = camera_errors(cam0, truth)
+
+    reads, launches_after, prof, top = [], [], None, []
+    host_ms = device_ms = None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(st)
+    while True:
+        if tb.training_step == CAMERA_PROFILE_AT:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        if tb.training_step == CAMERA_PROFILE_AT + PROFILE_WINDOW:
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_WINDOW
+            prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            prof.start()
+        if not tb.frame():
+            break
+        launches_after.append(st.segment_sum_rows.launches)
+        if tb.training_step % 16 == 0 or tb.training_step == 1:
+            reads.append(tb.loss_scalar)
+        if prof is not None and tb.training_step == CAMERA_PROFILE_AT + 2 * PROFILE_WINDOW:
+            torch.cuda.synchronize()
+            prof.stop()
+            device_ms = device_ms_per_step(prof, PROFILE_WINDOW)
+            top = [{"name": e.key[:60], "ms_per_step": e.self_device_time_total / 1e3
+                    / PROFILE_WINDOW} for e in device_events(prof)[:8]]
+            prof = None
+    torch.cuda.synchronize()
+    launches = st.segment_sum_rows.launches
+    if tb.training_step != CAMERA_STEPS or launches_after != list(range(1, CAMERA_STEPS + 1)):
+        raise AssertionError(f"camera phase: {tb.training_step} steps, {launches} kernel-1 "
+                             "launches")
+    if not all(v == v and abs(v) < 1e30 for v in reads):
+        raise AssertionError(f"camera phase: non-finite losses {reads}")
+    moved = {k: float((tb.state.cam[k] - cam0[k]).abs().max()) for k in cam0}
+    if not all(moved[k] > 0.0 for k in cam0 if k != "latent"):
+        raise AssertionError(f"camera phase: the camera group did not move: {moved}")
+    after = camera_errors(tb.state.cam, truth)
+
+    tb.prepare_for_test()
+    held = make_sphere_dataset(n_views=2, resolution=SCENE_RES, seed=1)
+    images, cams = held.to_device("cuda")
+    rcfg = RenderConfig(field=tb.config.field, aabb_scale=tb.config.aabb_scale,
+                        min_transmittance=1e-4)
+    target = srgb_eval_target(images[0])
+    view = {"black_psnr": float(psnr(torch.zeros_like(target), target))}
+    # At the true focal, and at the focal the rig states (CAMERA_FOCAL_FACTOR
+    # long) with the learned correction: a held-out photo shares its rig's
+    # calibration, and the field's scale trades against the focal.
+    stated = cams.focal[0] * CAMERA_FOCAL_FACTOR * torch.exp(tb.state.cam["focal_ln"])
+    for name, focal in (("true_focal", cams.focal[0]), ("stated_focal_corrected", stated)):
+        rgb, _, _ = render_image(tb.state.ema_params, tb.effective_acc, tb.state.occupancy,
+                                 cams, cams.poses[0], focal, cams.principal[0],
+                                 torch.Generator(device="cuda").manual_seed(0), rcfg,
+                                 background=0.0, spp=EVAL_SPP, **tb._render_extras())
+        view[name] = {"psnr": float(psnr(rgb, target)), "ssim": float(ssim(rgb, target))}
+
+    plain = tb.render(SCENE_RES, SCENE_RES, 1)
+    tb.exposure, tb.tonemap_curve = 0.5, "ACES"
+    toned = tb.render(SCENE_RES, SCENE_RES, 1)
+    tb.exposure, tb.tonemap_curve = 0.0, "Identity"
+    want = torch.clamp(apply_output_tonemap(torch.from_numpy(plain[..., :3]), 0.5, "aces"), 0, 1)
+    tone_err = float(np.abs(toned[..., :3] - want.numpy()).max())
+    if not (np.isfinite(toned).all() and tone_err <= 1e-6):
+        raise AssertionError(f"camera phase: tonemapped render max|diff| {tone_err}")
+
+    out = {
+        "steps": CAMERA_STEPS, "write_s": write_s, "load_s": load_s,
+        "loss_first": reads[0], "loss_last": reads[-1], "loss_reads": reads,
+        "launches": launches, "launches_per_step": launches / CAMERA_STEPS,
+        "host_ms_per_step": host_ms, "device_ms_per_step": device_ms,
+        "static_device_ms_per_step": static_device_ms, "top_device": top,
+        "errors_before": before, "errors_after": after,
+        "camera_moved_max_abs": moved, "held_out_view": view, "tonemap_max_abs_err": tone_err,
+        "envmap_alpha_mean": float(tb.state.cam["envmap"][..., 3].mean()),
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    print("camera_phase " + json.dumps(out), flush=True)
+    return out
+
+
 def field_agrees_with_cpu(torch, cfg, n: int = 16384) -> dict:
     """The field and its gradients at full width on the card (through the
     segment-sum kernel) vs the same inputs on the CPU (exact scatter):
@@ -1066,12 +1281,13 @@ def main() -> int:
     field_agrees_with_cpu(torch, cfg)
     images, cams = make_sphere_dataset(n_views=16, resolution=SCENE_RES, seed=0).to_device("cuda")
     train, state = training_phase(torch, tt, st, cfg, images, cams)
-    profile_phase(torch, tt, state, images, cams, cfg)
+    prof = profile_phase(torch, tt, state, images, cams, cfg)
     del state, images, cams
     tb, testbed = testbed_phase(torch, st, cfg, hyper)
     snap = snapshot_phase(torch, st, testbed)
     del testbed
     dyn = dynamic_phase(torch, st, cfg, hyper)
+    camera = camera_phase(torch, st, cfg, hyper, prof["device_ms_per_step"])
 
     def entry(name, replaces, rec, rec_f8, launches, extra=()):
         f8_keys = ("max_abs_err", "kernel_ms", "plain_ms", "bound_ms", "library_ms", *extra)
@@ -1089,6 +1305,7 @@ def main() -> int:
          "sort_ms": k1["sort_ms"], "launches_per_step": tb["launches_per_step"],
          "train_static_launches": train["launches"],
          "dynamic_launches": dyn["launches_by_phase"],
+         "camera_launches": camera["launches"],
          "resume_launches": {"native": snap["resume"]["launches_resumed"],
                              "reference": snap["reference"]["launches"]}},
     ] + [

@@ -10,10 +10,8 @@ Testbed's ``TrainConfig`` (a frozen dataclass: a write swaps in a replaced
 config).
 
 Only knobs with a backing in the port are exposed: any other attribute
-raises AttributeError rather than taking a setting and ignoring it.  The
-JAX package's ``depth_supervision_lambda``, ``optimize_extrinsics``,
-``optimize_exposure``, ``optimize_focal_length`` and
-``render_with_camera_distortion`` wait for the camera-side extras.
+raises AttributeError rather than taking a setting and ignoring it.  A
+write to a ``TrainConfig`` knob takes effect from the next step.
 """
 
 from __future__ import annotations
@@ -50,6 +48,19 @@ class NerfTrainingView:
         "near",
         "Minimum marching distance along each training ray "
         "(reference m_nerf.training.near_distance).")
+    depth_supervision_lambda = _cfg_property(
+        "depth_supervision_lambda",
+        "Weight of the L2 depth term (reference depth_supervision_lambda).")
+    optimize_extrinsics = _cfg_property(
+        "optimize_extrinsics",
+        "Train per-image camera pose offsets (reference "
+        "m_nerf.training.optimize_extrinsics).")
+    optimize_exposure = _cfg_property(
+        "optimize_exposure",
+        "Train per-image exposure (reference optimize_exposure).")
+    optimize_focal_length = _cfg_property(
+        "optimize_focal_length",
+        "Train the shared focal length (reference optimize_focal_length).")
 
     @property
     def n_images_for_training(self) -> int:
@@ -80,6 +91,16 @@ class NerfView:
     @rendering_min_transmittance.setter
     def rendering_min_transmittance(self, v: float):
         self._tb.rendering_min_transmittance = float(v)
+
+    @property
+    def render_with_camera_distortion(self) -> bool:
+        """Render through the learned distortion grid (reference
+        m_nerf.render_with_camera_distortion)."""
+        return self._tb.render_with_camera_distortion
+
+    @render_with_camera_distortion.setter
+    def render_with_camera_distortion(self, v: bool):
+        self._tb.render_with_camera_distortion = bool(v)
 
     @property
     def sharpen(self) -> float:

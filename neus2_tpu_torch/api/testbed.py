@@ -18,8 +18,11 @@ codec), so a file either package writes loads into the other;
 ``load_snapshot`` sends a reference-format file (a ``snapshot`` key) to
 ``load_reference_snapshot``.  The pyngp surface (reference python_api.cu:
 317-616): the loss scalars, ``nerf`` / ``nerf.training``, the virtual
-render camera and ``render(width, height, spp, linear)``.  Envmap,
-distortion and multi-GPU are not ported yet and raise.
+render camera and ``render(width, height, spp, linear)``, and the output
+controls ``exposure`` and ``tonemap_curve``.  The learned camera group
+(``TrainState.cam``) trains with the canonical field when the config turns
+it on; renders use its envmap and distortion grid.  Multi-GPU is not ported
+yet and raises.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from neus2_tpu_torch.engine.train import (
     StepAux,
     TrainConfig,
     desired_batch_bucket,
+    init_cam_params,
     init_error_map_for,
     init_train_state,
     occupancy_prior_sweep,
@@ -201,6 +205,8 @@ def config_from_json(path: str | Path) -> tuple[TrainConfig, Hyperparams]:
         anneal_end=hyper.anneal_end,
         ema_decay=ema_decay,
         delta_lr=float(gm_leaf.get("learning_rate", 1e-4)),
+        distortion_res=tuple(
+            int(v) for v in cfg.get("distortion_map", {}).get("resolution", (32, 32))),
     )
     return train_cfg, hyper
 
@@ -218,6 +224,7 @@ class Testbed:
         self.dataset: NerfDataset | None = None
         self.images = None
         self.cameras = None
+        self.depths = None  # (N, H, W) on the device, with the dataset's depth maps
         self._datasets: list[NerfDataset] | None = None
         self.frame_jsons: list[Path] = []
         self.current_training_time_frame = 0
@@ -253,6 +260,16 @@ class Testbed:
         self._fov_deg = None  # ("xy", (fx, fy)) or ("iso", deg); None = dataset focal
         self.fov_axis = 1  # reference m_fov_axis default (y)
         self._screen_center = (0.5, 0.5)
+        # Output controls of every shaded render (reference m_exposure /
+        # m_tonemap_curve, render_buffer.cu:313-332).
+        self.exposure = 0.0
+        self.tonemap_curve = "Identity"
+        # Renders through the learned distortion grid (reference
+        # m_nerf.render_with_camera_distortion).
+        self.render_with_camera_distortion = True
+        # Display knobs the reference's scripts set; kept, nothing reads them.
+        self.color_space = "sRGB"
+        self.snap_to_pixel_centers = False
 
     # -- data ---------------------------------------------------------------
 
@@ -281,6 +298,7 @@ class Testbed:
         else:
             self.dataset = load_dataset(self.frame_jsons[idx], n_frames_cap)
         self.cameras = self.dataset.cameras(self.device)
+        self.depths = self.dataset.depths_device(self.device)
         if self.config.include_sharpness_in_error:
             # Load-time sharpness grids (reference compute_sharpness,
             # nerf_loader.cu:129-178).
@@ -330,12 +348,23 @@ class Testbed:
                                       min(self.dataset.resolution))
             if res != cfg.error_map_res:
                 cfg = dataclasses.replace(cfg, error_map_res=res)
+        # A dataset envmap turns the learned envmap on at its resolution
+        # (reference nerf_loader.cu:498-511 and its m_envmap trainer).
+        if self.dataset.envmap is not None:
+            cfg = dataclasses.replace(cfg, use_envmap=True,
+                                      envmap_res=tuple(self.dataset.envmap.shape[:2]))
         self.config = cfg
 
     def _init_state(self):
-        """Fresh state, then the step-0 whole-grid probe sweep."""
+        """Fresh state, with the learned envmap seeded from the dataset's,
+        then the step-0 whole-grid probe sweep."""
         self.state = init_train_state(self.config, self.dataset.n_images, seed=self.seed,
                                       device=self.device)
+        if self.dataset.envmap is not None:
+            cam = dict(self.state.cam)
+            cam["envmap"] = torch.as_tensor(self.dataset.envmap, dtype=torch.float32,
+                                            device=self.device)
+            self.state = self.state._replace(cam=cam)
         self.state = occupancy_prior_sweep(self.state, self.config)
 
     # -- scalars --------------------------------------------------------------
@@ -439,9 +468,10 @@ class Testbed:
             if cfg.use_error_map and emap.should_rebuild(self.training_step):
                 state = rebuild_error_cdf(state)
         with self.meters.scope("training"):
-            state, aux = train_step(state, self.images, self.cameras, cfg,
-                                    train_canonical=self.train_canonical,
-                                    train_delta=self.train_delta, use_delta=self.use_delta)
+            state, aux = train_step(
+                state, self.images, self.cameras, cfg, train_canonical=self.train_canonical,
+                train_delta=self.train_delta, use_delta=self.use_delta,
+                depths=self.depths if cfg.depth_supervision_lambda > 0.0 else None)
         self.state = state
         self.training_step += 1
         # 16-step fetch (reference get_loss_scalar, testbed.cu:2714), and on
@@ -520,7 +550,8 @@ class Testbed:
         is folded into the accumulated transform and starts again at the
         identity (or, with ``delta_motion_prior``, at its last value); the
         residual grid freezes into its base; the field's and the delta's
-        Adam and the error map start fresh; pose refinement comes first."""
+        Adam, the camera group with its Adam, and the error map start fresh;
+        pose refinement comes first."""
         if self.current_training_time_frame >= self.all_training_time_frame - 1:
             return False
         self.current_training_time_frame += 1
@@ -533,9 +564,12 @@ class Testbed:
         if self.config.field.residual_grid:
             state = state._replace(params=freeze_grid_into_base(state.params),
                                    ema_params=freeze_grid_into_base(state.ema_params))
+        cam = init_cam_params(self.dataset.n_images, self.config, dev)
         state = state._replace(
             opt_state=adam_init(state.params),
             delta_opt_state=plain_adam_init(delta_mod.init_delta(dev)),
+            cam=cam,
+            cam_opt_state=plain_adam_init(cam),
             error_map=init_error_map_for(self.config, self.dataset.n_images, dev),
             frame_step=0,
         )
@@ -671,6 +705,20 @@ class Testbed:
                 f.write(" ".join(f"{v:.8f}" for v in acc["rotation"][i])
                         + f" {acc['transition'][i]:.8f}\n")
 
+    def _render_extras(self) -> dict:
+        """The learned extras of every render: the envmap behind the rays,
+        the distortion grid on ray generation (unless
+        ``render_with_camera_distortion`` is off), and the output controls
+        (render_buffer.cu:313-332)."""
+        cam = self.state.cam
+        return {
+            "envmap": cam["envmap"] if self.config.use_envmap else None,
+            "distortion": (cam["distortion"] if self.config.use_distortion
+                           and self.render_with_camera_distortion else None),
+            "exposure": float(self.exposure),
+            "tonemap": str(self.tonemap_curve),
+        }
+
     def _default_render_cfg(self) -> RenderConfig:
         return RenderConfig(field=self.config.field, aabb_scale=self.config.aabb_scale,
                             min_transmittance=self.rendering_min_transmittance)
@@ -705,7 +753,7 @@ class Testbed:
                 params, self.effective_acc, self.state.occupancy, cams,
                 cams.poses[img_idx], cams.focal[img_idx], cams.principal[img_idx],
                 torch.Generator(device=self.device).manual_seed(7), cfg,
-                background=bg, spp=spp, mode=mode,
+                background=bg, spp=spp, mode=mode, **self._render_extras(),
             )
         if linear:
             from neus2_tpu_torch.ops.losses import srgb_to_linear
@@ -730,7 +778,7 @@ class Testbed:
                 torch.as_tensor(self._screen_center, **f32),
                 torch.Generator(device=self.device).manual_seed(7), cfg,
                 background=self.background_color[:3], spp=int(spp) or 1, mode=mode,
-                resolution=(int(width), int(height)),
+                resolution=(int(width), int(height)), **self._render_extras(),
             )
         if linear:
             from neus2_tpu_torch.ops.losses import srgb_to_linear

@@ -12,14 +12,18 @@ Host-side numpy, with the reference's behavior contract:
     translation, and for non-na data cycle the axes; na data only scales
     and offsets;
   * default ``scale`` 0.33 and ``offset`` (0.5, 0.5, 0.5);
-  * texels stored premultiplied-alpha linear RGBA.
+  * texels stored premultiplied-alpha linear RGBA;
+  * per-frame ``depth_path`` images times ``integer_depth_scale`` times
+    the scene scale, in ngp units (0 = no data); a json-root ``envmap``
+    image that seeds the learned envmap.
 
 PNG/JPEG frames decode on the native thread pool (``native.py``, the repo's
 ``native/image_loader.cpp``), with Pillow for any file it cannot decode or
-wherever it cannot be built.  Lens distortion, FTheta,
-rolling shutter, depth maps, per-pixel ray files, environment maps,
-load-time sharpening, EXR frames and mixed resolutions are not ported yet:
-a JSON or scene that asks for one raises.
+wherever it cannot be built; depth maps and the envmap decode with Pillow
+(a 16-bit grey PNG stays uint16).  Lens distortion, FTheta, rolling
+shutter, per-pixel ray files, load-time sharpening, EXR frames and depth
+maps, and mixed resolutions are not ported yet: a JSON or scene that asks
+for one raises.
 """
 
 from __future__ import annotations
@@ -52,6 +56,12 @@ class NerfDataset:
     aabb_scale: int = 1
     from_na: bool = False
     paths: tuple[str, ...] = ()
+    # (N, H, W) float32 depth in ngp units, 0 = no data (reference
+    # nerf_loader.cu:91-98, 218-220, 599-607, 736); None without depth maps.
+    depths: np.ndarray | None = None
+    # (H, W, 4) premultiplied-linear RGBA from the json-root "envmap" image
+    # (reference nerf_loader.cu:498-511).
+    envmap: np.ndarray | None = None
 
     @property
     def n_images(self) -> int:
@@ -72,6 +82,11 @@ class NerfDataset:
     def to_device(self, device) -> tuple[torch.Tensor, Cameras]:
         """(images (N, H, W, 4), Cameras) as tensors on ``device``."""
         return torch.as_tensor(self.images, device=device), self.cameras(device)
+
+    def depths_device(self, device) -> torch.Tensor | None:
+        if self.depths is None:
+            return None
+        return torch.as_tensor(self.depths, dtype=torch.float32, device=device)
 
 
 def nerf_matrix_to_ngp(mat: np.ndarray, scale: float, offset: np.ndarray,
@@ -181,11 +196,9 @@ def _refuse_unported(meta: dict, frames: list, basepath: Path) -> None:
     if "rolling_shutter" in meta or any("transform_matrix_end" in f for f in frames):
         asks.append("rolling shutter / end-of-exposure poses")
     if float(meta.get("integer_depth_scale", -1.0)) > 0.0 and any(
-        "depth_path" in f for f in frames
+        Path(f.get("depth_path", "")).suffix.lower() == ".exr" for f in frames
     ):
-        asks.append("depth maps")
-    if "envmap" in meta:
-        asks.append("an environment map")
+        asks.append("EXR depth maps")
     if float(meta.get("sharpen", 0.0)) > 0.0:
         asks.append("load-time sharpening")
     for f in frames:
@@ -215,6 +228,15 @@ def load_dataset(json_path: str | os.PathLike, n_frames_cap: int | None = None) 
     offset = np.asarray(meta.get("offset", (0.5, 0.5, 0.5)), np.float32)
     if np.ndim(offset) == 0:
         offset = np.full((3,), float(offset), np.float32)
+    # uint16 depth images scale by integer_depth_scale, then by the scene
+    # scale (reference set_training_image, nerf_loader.cu:736).
+    depth_scale = float(meta.get("integer_depth_scale", -1.0))
+    envmap = None
+    if "envmap" in meta:
+        envmap_path = basepath / str(meta["envmap"])
+        if not envmap_path.exists():
+            raise FileNotFoundError(f"Environment map path {envmap_path} does not exist.")
+        envmap = _load_image_rgba(envmap_path)
 
     resolved = []
     for frame in frames:
@@ -232,7 +254,7 @@ def load_dataset(json_path: str | os.PathLike, n_frames_cap: int | None = None) 
         for i, img in zip(native_idx, images):
             decoded[i] = img
 
-    images, poses, focals, principals = [], [], [], []
+    images, poses, focals, principals, depth_list = [], [], [], [], []
     for frame, p, img in zip(frames, resolved, decoded):
         images.append(img if img is not None else _load_image_rgba(p))
         mat = np.asarray(frame.get("transform_matrix_start", frame.get("transform_matrix")),
@@ -242,8 +264,15 @@ def load_dataset(json_path: str | os.PathLike, n_frames_cap: int | None = None) 
         fx, fy, cx, cy = _focal_from_json(frame, meta, w, h)
         focals.append((fx, fy))
         principals.append((cx, cy))
+        depth_list.append(_load_depth(basepath / frame["depth_path"], depth_scale * scale)
+                          if depth_scale > 0.0 and "depth_path" in frame else None)
     if len({im.shape[:2] for im in images}) != 1:
         raise NotImplementedError("mixed image resolutions are not ported yet")
+    depths = None
+    if any(d is not None for d in depth_list):
+        h, w = images[0].shape[:2]
+        depths = np.stack([np.zeros((h, w), np.float32) if d is None else d
+                           for d in depth_list])
     return NerfDataset(
         images=np.stack(images),
         poses=np.stack(poses),
@@ -254,7 +283,20 @@ def load_dataset(json_path: str | os.PathLike, n_frames_cap: int | None = None) 
         aabb_scale=int(meta.get("aabb_scale", 1)),
         from_na=from_na,
         paths=tuple(str(p) for p in resolved),
+        depths=depths,
+        envmap=envmap,
     )
+
+
+def _load_depth(path: Path, scale: float) -> np.ndarray:
+    """A depth image -> (H, W) float32 in ngp units, 0 = missing: pixels
+    times ``integer_depth_scale`` times the scene scale (the reference's
+    copy_depth, nerf_loader.cu:91-98, 736); the first channel of a colour
+    image."""
+    d = _read_image(path)
+    if d.ndim == 3:
+        d = d[..., 0]
+    return (d.astype(np.float32) * scale).astype(np.float32)
 
 
 def list_frame_jsons(scene_path: str | os.PathLike) -> list[Path]:

@@ -13,6 +13,13 @@ its own autograd graph: the canonical field (``train_canonical``), the
 delta transform (``train_delta``), or both; pure pose refinement builds no
 table gradient at all.
 
+The learned camera group (``TrainState.cam``): per-image extrinsic
+offsets, exposure and latent codes, the shared focal scale, the envmap and
+the distortion grid.  It trains with its own Adam in canonical phases
+(``wants_cam_training``), and only the leaves the config puts into the loss
+are differentiated: the extrinsics, focal and distortion move the rays, so
+they need the encoder's position gradient; the others do not.
+
 Every random number of a step is drawn up front into a ``StepDraws`` from
 the state's ``torch.Generator`` (on the step's device); callers may pass
 their own draws instead, which is how the tests hold a step against the
@@ -20,7 +27,8 @@ JAX package.
 
 Loss normalization as in the reference: rgb is the mean over rays of the
 channel-mean Huber/5; eikonal is ek_weight * mean over the compacted
-samples; mask is BCE on the clamped weight sum.  Candidates that the
+samples; mask is BCE on the clamped weight sum; depth is the L2 of the ray
+depth over the rays with ground truth.  Candidates that the
 compaction rejects are misses whose rgb/mask losses do not depend on the
 field; they are counted analytically.
 """
@@ -42,17 +50,25 @@ from neus2_tpu_torch.engine.march import (
     march_rays,
     probe_candidates,
 )
-from neus2_tpu_torch.engine.rays import Cameras, rays_from_pixels
+from neus2_tpu_torch.engine.rays import Cameras, pixel_to_ray, rays_from_pixels
 from neus2_tpu_torch.models import delta as delta_mod
 from neus2_tpu_torch.models.field import FieldConfig, field_forward, init_field, sdf_fn
 from neus2_tpu_torch.ops import losses as L
+from neus2_tpu_torch.ops.envmap import (
+    apply_distortion,
+    composite_envmap_background,
+    init_distortion,
+    init_envmap,
+)
 from neus2_tpu_torch.ops.neus_math import (
     composite_rays,
     cos_anneal_ratio,
     neus_alpha,
     sdf_to_logistic_density,
+    clip,
     variance_to_inv_s,
 )
+from neus2_tpu_torch.ops.rotation import identity_6d, rotation_6d_to_matrix
 from neus2_tpu_torch.ops.warp import AABB, scene_aabb, warp_direction, warp_position
 from neus2_tpu_torch.utils.device import resolve_device
 from neus2_tpu_torch.utils.optim import (
@@ -70,7 +86,7 @@ Params = Any
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """The JAX package's ``TrainConfig`` without the camera-side extras."""
+    """The JAX package's ``TrainConfig``."""
 
     field: FieldConfig = FieldConfig()
     optim: OptimConfig = OptimConfig()
@@ -106,6 +122,22 @@ class TrainConfig:
     use_error_map: bool = False
     error_map_res: int = 32
     include_sharpness_in_error: bool = False
+    # The learned camera group (reference optimize_extrinsics / exposure /
+    # focal_length, testbed_nerf.cu:3641-3692) and its Adam's lr.
+    optimize_extrinsics: bool = False
+    optimize_exposure: bool = False
+    optimize_focal_length: bool = False
+    cam_lr: float = 1e-4
+    # Per-ray max level U[0, 1) * 2, so ~half the rays train every level
+    # (reference m_max_level_rand_training, testbed_nerf.cu:1315).
+    max_level_rand_training: bool = False
+    # Weight of the L2 depth term (reference depth_supervision_lambda).
+    depth_supervision_lambda: float = 0.0
+    # The learned envmap and distortion grid and their resolutions.
+    use_envmap: bool = False
+    envmap_res: tuple = (16, 32)
+    use_distortion: bool = False
+    distortion_res: tuple = (32, 32)
     cone_angle_constant: float = 1.0 / 256.0
     hit_oversample: int = 2
 
@@ -124,6 +156,10 @@ class TrainState(NamedTuple):
     delta: Params  # the per-frame rigid transform {"rotation6d", "transition"}
     delta_opt_state: dict  # its plain Adam
     acc: Params  # the accumulated transform {"rotation" (3, 3), "transition"}
+    # The camera group {"rot6d" (N, 6), "trans" (N, 3), "exposure" (N, 3),
+    # "focal_ln" (2,)}, with "envmap", "distortion" and "latent" when on.
+    cam: Params
+    cam_opt_state: dict  # its plain Adam, one count for the group
     occupancy: occ.OccupancyGrid
     error_map: emap.ErrorMapState
     step: int
@@ -166,6 +202,10 @@ class StepDraws(NamedTuple):
     drop_u: torch.Tensor  # (C,) uniforms of the black-pixel drop
     em_u: torch.Tensor | None = None  # (C,) error-map CDF uniforms
     em_jitter: torch.Tensor | None = None  # (C, 2) in-cell jitter
+    # (n_rays,) uniforms of the per-ray max level, with
+    # max_level_rand_training on (drawn last, so every other stream stays
+    # as it is without it).
+    max_level_u: torch.Tensor | None = None
 
     def to(self, device) -> StepDraws:
         return StepDraws(*(None if d is None else d.to(device) for d in self))
@@ -189,7 +229,8 @@ def sample_step_draws(generator: torch.Generator, config: TrainConfig,
         (C, 3), device=generator.device
     )
     drop_u = torch.rand((C,), **kw)
-    return StepDraws(img_idx, uv0, probe_u, xi, bg, drop_u, em_u, em_jitter)
+    max_level_u = torch.rand((R,), **kw) if config.max_level_rand_training else None
+    return StepDraws(img_idx, uv0, probe_u, xi, bg, drop_u, em_u, em_jitter, max_level_u)
 
 
 def init_train_state(config: TrainConfig, n_images: int = 1, seed: int = 0,
@@ -199,6 +240,7 @@ def init_train_state(config: TrainConfig, n_images: int = 1, seed: int = 0,
     dev = resolve_device(device)
     params = init_field(torch.Generator().manual_seed(seed), config.field, dev)
     delta = delta_mod.init_delta(dev)
+    cam = init_cam_params(n_images, config, dev)
     return TrainState(
         params=params,
         ema_params=tree_map(torch.clone, params),
@@ -206,12 +248,76 @@ def init_train_state(config: TrainConfig, n_images: int = 1, seed: int = 0,
         delta=delta,
         delta_opt_state=plain_adam_init(delta),
         acc=delta_mod.init_accumulated(dev),
+        cam=cam,
+        cam_opt_state=plain_adam_init(cam),
         occupancy=occ.init_occupancy(config.occ_cascades, device=dev),
         error_map=init_error_map_for(config, n_images, dev),
         step=0,
         frame_step=0,
         generator=torch.Generator(device=dev).manual_seed(seed + 1),
     )
+
+
+def init_cam_params(n_images: int, config: TrainConfig | None = None,
+                    device="cpu") -> Params:
+    """The camera group at the identity: no extrinsic offset, exposure 0,
+    focal scale 1 (one correction shared by every image, as the reference's
+    m_focal_length_gradient, testbed_nerf.cu:3679-3692); the envmap
+    (``ops/envmap.py``: its own seeded draw, not the JAX package's), the
+    zero distortion grid and zero latent codes when the config has them."""
+    n = max(n_images, 1)
+    f32 = dict(dtype=torch.float32, device=device)
+    cam = {
+        "rot6d": identity_6d(device)[None].repeat(n, 1),
+        "trans": torch.zeros((n, 3), **f32),
+        "exposure": torch.zeros((n, 3), **f32),
+        "focal_ln": torch.zeros((2,), **f32),
+    }
+    if config is not None and config.use_envmap:
+        cam["envmap"] = init_envmap(config.envmap_res, device)
+    if config is not None and config.use_distortion:
+        cam["distortion"] = init_distortion(config.distortion_res, device)
+    if config is not None and config.field.latent_dim > 0:
+        cam["latent"] = torch.zeros((n, config.field.latent_dim), **f32)
+    return cam
+
+
+def wants_cam_training(config: TrainConfig) -> bool:
+    """Whether any leaf of the camera group is in the loss."""
+    return bool(cam_leaves_in_loss(config))
+
+
+def cam_leaves_in_loss(config: TrainConfig) -> tuple[str, ...]:
+    """The camera leaves the config puts into the loss: the only ones the
+    step differentiates.  The JAX package differentiates the whole group;
+    the others' gradients are zero there, and are given as zeros here."""
+    keys = []
+    if config.optimize_extrinsics:
+        keys += ["rot6d", "trans"]
+    if config.optimize_exposure:
+        keys.append("exposure")
+    if config.optimize_focal_length:
+        keys.append("focal_ln")
+    if config.use_envmap:
+        keys.append("envmap")
+    if config.use_distortion:
+        keys.append("distortion")
+    if config.field.latent_dim > 0:
+        keys.append("latent")
+    return tuple(keys)
+
+
+def adjusted_cameras(cam: Params, cameras: Cameras, config: TrainConfig) -> Cameras:
+    """The cameras with the learned corrections: per-image extrinsic
+    offsets (R_cam R, t + t_cam) and the shared focal scale."""
+    if config.optimize_extrinsics:
+        rot = rotation_6d_to_matrix(cam["rot6d"])  # (N, 3, 3)
+        r = rot @ cameras.poses[..., :3]
+        t = cameras.poses[..., 3] + cam["trans"]
+        cameras = cameras._replace(poses=torch.cat([r, t[..., None]], -1))
+    if config.optimize_focal_length:
+        cameras = cameras._replace(focal=cameras.focal * torch.exp(cam["focal_ln"])[None, :])
+    return cameras
 
 
 def init_error_map_for(config: TrainConfig, n_images: int, device) -> emap.ErrorMapState:
@@ -222,9 +328,14 @@ def init_error_map_for(config: TrainConfig, n_images: int, device) -> emap.Error
                                device=device)
 
 
-def _forward_loss(params: Params, delta: Params, state: TrainState, images: torch.Tensor,
-                  cameras: Cameras, draws: StepDraws, config: TrainConfig, use_delta: bool):
-    """-> (total loss, StepAux, StepExtras or None without the error map)."""
+def _forward_loss(params: Params, delta: Params, cam: Params, state: TrainState,
+                  images: torch.Tensor, cameras: Cameras, draws: StepDraws,
+                  config: TrainConfig, use_delta: bool, depths: torch.Tensor | None = None):
+    """-> (total loss, StepAux, StepExtras or None without the error map).
+
+    Gradients reach the cameras through the rays: the probe and the sample
+    draw see detached rays, so sample distances are data, and positions
+    are o + t d with t constant."""
     aabb = config.aabb()
     R, S = config.n_rays, config.samples_per_ray
     C = R * config.hit_oversample
@@ -233,13 +344,17 @@ def _forward_loss(params: Params, delta: Params, state: TrainState, images: torc
                                           cameras.n_images)
     else:
         img_idx, uv0 = draws.img_idx, draws.uv0
-    origins, dirs, rgba, uv = rays_from_pixels(cameras, images, img_idx, uv0)
+    cams_adj = adjusted_cameras(cam, cameras, config)
+    origins, dirs, rgba, uv = rays_from_pixels(cams_adj, images, img_idx, uv0)
+    if config.use_distortion:
+        # The learned distortion moves ray generation, not the texel fetch.
+        origins, dirs = pixel_to_ray(cams_adj, img_idx, apply_distortion(cam["distortion"], uv))
     origins, dirs = delta_mod.apply_accumulated_to_rays(state.acc, origins, dirs)
-    img_c, uv_c, rgba_c = img_idx, uv, rgba
+    img_c, uv_c, rgba_c, dirs_c = img_idx, uv, rgba, dirs
     rest = rest_hit = None
     if config.hit_oversample > 1:
         probe = probe_candidates(
-            origins, dirs, aabb, state.occupancy, config.n_candidates,
+            origins.detach(), dirs.detach(), aabb, state.occupancy, config.n_candidates,
             draws.probe_u, cone_angle=config.cone_angle, near=config.near,
         )
         # Hitting candidates first, stable, so the first R hits are an
@@ -251,10 +366,10 @@ def _forward_loss(params: Params, delta: Params, state: TrainState, images: torc
         origins, dirs, rgba, uv, img_idx = (
             origins[sel], dirs[sel], rgba[sel], uv[sel], img_idx[sel]
         )
-        samples = draw_from_probe(probe_sel, origins, dirs, S, draws.xi)
+        samples = draw_from_probe(probe_sel, origins.detach(), dirs.detach(), S, draws.xi)
     else:
         samples = march_rays(
-            origins, dirs, aabb, state.occupancy, config.n_candidates, S,
+            origins.detach(), dirs.detach(), aabb, state.occupancy, config.n_candidates, S,
             draws.probe_u, draws.xi, cone_angle=config.cone_angle,
             near=config.near,
         )
@@ -266,7 +381,15 @@ def _forward_loss(params: Params, delta: Params, state: TrainState, images: torc
     if use_delta:  # the per-frame transform on the warped samples (transform_network.h:49)
         pos_w, dir_w = delta_mod.apply_delta(delta, pos_w, dir_w)
     unlock = config.field.grid.valid_level(state.frame_step - config.valid_level_step_offset)
-    out = field_forward(params, pos_w, dir_w, config.field, valid_level=unlock)
+    latent = max_level = None
+    if config.field.latent_dim > 0:
+        ld = config.field.latent_dim
+        latent = cam["latent"][img_idx][:, None, :].expand(R, S, ld).reshape(R * S, ld)
+    if config.max_level_rand_training:
+        # U[0, 1) * 2 a ray, the same for its samples (testbed_nerf.cu:1315).
+        max_level = (draws.max_level_u * 2.0)[:, None].expand(R, S).reshape(R * S)
+    out = field_forward(params, pos_w, dir_w, config.field, valid_level=unlock,
+                        max_level=max_level, latent=latent)
     rgb_s = out.rgb.reshape(R, S, 3)
     sdf_s = out.sdf.reshape(R, S)
     normal_s = out.normal.reshape(R, S, 3)
@@ -281,7 +404,15 @@ def _forward_loss(params: Params, delta: Params, state: TrainState, images: torc
     # 1669-1677): background, sRGB target, the 10% drop of black pixels,
     # mask ground truth.
     bg_c = draws.bg
+    if config.use_envmap:
+        # The learned envmap behind the background, composited in linear
+        # space (testbed_nerf.cu:1646-1655), then back to sRGB.
+        bg_lin = composite_envmap_background(cam["envmap"], dirs_c, L.srgb_to_linear(bg_c))
+        bg_c = L.linear_to_srgb(clip(bg_lin, 0.0, 1.0))
     texrgb_c = rgba_c[:, :3]
+    if config.optimize_exposure:
+        # On the premultiplied linear texels, before the unpremultiply.
+        texrgb_c = texrgb_c * torch.exp2(cam["exposure"][img_c])
     a_c = rgba_c[:, 3:4]
     safe_a = torch.where(a_c > 0, a_c, torch.ones_like(a_c))
     target_c = torch.where(
@@ -326,6 +457,16 @@ def _forward_loss(params: Params, delta: Params, state: TrainState, images: torc
         + config.ek_loss_weight * ek_loss
         + config.mask_loss_weight * mask_loss
     )
+    if depths is not None and config.depth_supervision_lambda > 0.0:
+        # L2 on the ray depth where ground truth exists, over those rays
+        # (reference depth supervision, testbed_nerf.cu:1903-1906).
+        wh = cameras.size_of(img_idx)
+        px = torch.minimum((uv[:, 0] * wh[:, 0]).to(torch.int64), wh[:, 0].to(torch.int64) - 1)
+        py = torch.minimum((uv[:, 1] * wh[:, 1]).to(torch.int64), wh[:, 1].to(torch.int64) - 1)
+        depth_gt = depths[img_idx, py, px]
+        has_d = (depth_gt > 0.0).to(torch.float32) * ray_w
+        depth_loss = (has_d * (comp.depth - depth_gt) ** 2).sum() / torch.clamp_min(has_d.sum(), 1.0)
+        total = total + config.depth_supervision_lambda * depth_loss
     with torch.no_grad():
         mse = (((pred - target) ** 2).mean(-1) * ray_w).sum() + rest_mse_sum
         mse = mse / n_live
@@ -393,15 +534,18 @@ def _deposit_extras(state: TrainState, cameras: Cameras, config: TrainConfig,
 
 
 def loss_and_grads(diff: dict, state: TrainState, images: torch.Tensor, cameras: Cameras,
-                   draws: StepDraws, config: TrainConfig, use_delta: bool = False):
+                   draws: StepDraws, config: TrainConfig, use_delta: bool = False,
+                   depths: torch.Tensor | None = None):
     """Gradients for the param groups in ``diff`` ({"params": ...,
-    "delta": ...}); a group left out is read from ``state`` as a constant,
+    "delta": ..., "cam": ...}; "cam" may hold a subset of the group's
+    leaves); a group or leaf left out is read from ``state`` as a constant,
     so autograd spends no backward work on it -> (grads with ``diff``'s
     structure, StepAux, StepExtras or None without the error map)."""
     live = tree_map(lambda p: p.detach().requires_grad_(True), diff)
     total, aux, extras = _forward_loss(
-        live.get("params", state.params), live.get("delta", state.delta), state, images,
-        cameras, draws, config, use_delta,
+        live.get("params", state.params), live.get("delta", state.delta),
+        {**state.cam, **live.get("cam", {})}, state, images, cameras, draws, config,
+        use_delta, depths,
     )
     leaves = tree_leaves(live)
     grads = torch.autograd.grad(total, leaves, allow_unused=True)
@@ -422,26 +566,32 @@ def phase_config(config: TrainConfig, train_canonical: bool = True,
 def train_step(state: TrainState, images: torch.Tensor, cameras: Cameras,
                config: TrainConfig, draws: StepDraws | None = None,
                train_canonical: bool = True, train_delta: bool = False,
-               use_delta: bool = False):
+               use_delta: bool = False, depths: torch.Tensor | None = None):
     """One optimization step -> (new state, aux).
 
     The phases (testbed.cu:2659-2667): a static scene or frame 0 trains
     the canonical field only; pose refinement ``train_delta`` only; the
-    finetune phase both.  The step runs ``phase_config``; ``draws`` given
-    by the caller must be drawn for it.  The EMA copy moves every step, as
-    in the reference, even when the canonical field does not train."""
+    finetune phase both.  The camera group trains with the canonical field
+    only: it and the delta are gauge-ambiguous.  The step runs
+    ``phase_config``; ``draws`` given by the caller must be drawn for it.
+    ``depths`` (N, H, W), 0 where there is no ground truth, feed the depth
+    term.  The EMA copy moves every step, as in the reference, even when
+    the canonical field does not train."""
     config = phase_config(config, train_canonical, train_delta)
     if draws is None:
         draws = sample_step_draws(state.generator, config, cameras.n_images)
+    cam_keys = cam_leaves_in_loss(config) if train_canonical else ()
     diff = {}
     if train_canonical:
         diff["params"] = state.params
     if train_delta:
         diff["delta"] = state.delta
+    if cam_keys:
+        diff["cam"] = {k: state.cam[k] for k in cam_keys}
     if not diff:
         diff["params"] = state.params  # neither trains: the loss alone, no update
     grads, aux, extras = loss_and_grads(diff, state, images, cameras, draws, config,
-                                        use_delta or train_delta)
+                                        use_delta or train_delta, depths)
     new_params, new_opt = state.params, state.opt_state
     if train_canonical:
         updates, new_opt = adam_update(grads["params"], state.opt_state, state.params,
@@ -452,6 +602,15 @@ def train_step(state: TrainState, images: torch.Tensor, cameras: Cameras,
         updates, new_delta_opt = plain_adam_update(grads["delta"], state.delta_opt_state,
                                                    config.delta_lr)
         new_delta = tree_map(lambda p, u: p + u, state.delta, updates)
+    new_cam, new_cam_opt = state.cam, state.cam_opt_state
+    if cam_keys:
+        # The whole group steps with one count; the leaves out of the loss
+        # take zero gradients, as they get in the JAX package.
+        cam_grads = {k: grads["cam"][k] if k in grads["cam"] else torch.zeros_like(v)
+                     for k, v in state.cam.items()}
+        updates, new_cam_opt = plain_adam_update(cam_grads, state.cam_opt_state,
+                                                 config.cam_lr, eps=1e-8)
+        new_cam = tree_map(lambda p, u: p + u, state.cam, updates)
     new_emap = state.error_map
     if config.use_error_map:
         new_emap = emap.deposit(state.error_map, extras.img_idx, extras.uv, extras.ray_loss)
@@ -465,6 +624,8 @@ def train_step(state: TrainState, images: torch.Tensor, cameras: Cameras,
             opt_state=new_opt,
             delta=new_delta,
             delta_opt_state=new_delta_opt,
+            cam=new_cam,
+            cam_opt_state=new_cam_opt,
             error_map=new_emap,
             step=state.step + 1,
             frame_step=state.frame_step + 1,

@@ -4,8 +4,9 @@ the port's tensors and back.
 Both packages keep the same tree layout (per-level table tuple,
 ``{"layers": [{"w": (in, out), "b"}]}`` MLPs, scalar ``variance``; Adam
 ``{"mu", "nu", "steps", "count"}``; the delta ``{"rotation6d",
-"transition"}`` and the accumulated transform ``{"rotation",
-"transition"}``), so conversion is a leaf-wise copy.  Counters that the port
+"transition"}``, the accumulated transform ``{"rotation", "transition"}``
+and the camera group ``{"rot6d", "trans", "exposure", "focal_ln", ...}``),
+so conversion is a leaf-wise copy.  Counters that the port
 keeps on the host (Adam ``count``, occupancy ``ema_step``, ``step``,
 ``frame_step``) become Python integers.  The way back fills a JAX state
 given as a template (``like``), so this module needs none of the JAX
@@ -28,7 +29,7 @@ import torch
 
 from neus2_tpu_torch.engine.error_map import ErrorMapState, init_error_map
 from neus2_tpu_torch.engine.occupancy import OccupancyGrid
-from neus2_tpu_torch.engine.train import TrainState
+from neus2_tpu_torch.engine.train import TrainState, init_cam_params
 from neus2_tpu_torch.models.delta import init_accumulated, init_delta
 from neus2_tpu_torch.utils.optim import plain_adam_init
 from neus2_tpu_torch.utils.tree import tree_map
@@ -43,9 +44,9 @@ def _state_parts(state: TrainState) -> list[tuple[str, Any, bool]]:
     """(key prefix, subtree, whether its top level is attribute-style) of
     each part of the state, under the names JAX's ``tree_util.keystr``
     gives the JAX ``TrainState``'s leaves: dict keys as ``['k']``, list items as
-    ``[i]``, NamedTuple fields as ``.f``.  The delta's Adam is the first of
-    the JAX package's (ScaleByAdamState, EmptyState) pair, so its fields
-    sit under ``[0]``."""
+    ``[i]``, NamedTuple fields as ``.f``.  The delta's and the camera
+    group's Adam are each the first of the JAX package's (ScaleByAdamState,
+    EmptyState) pair, so their fields sit under ``[0]``."""
     return [
         (".params", state.params, False),
         (".ema_params", state.ema_params, False),
@@ -53,6 +54,8 @@ def _state_parts(state: TrainState) -> list[tuple[str, Any, bool]]:
         (".delta", state.delta, False),
         (".delta_opt_state[0]", state.delta_opt_state, True),
         (".acc", state.acc, False),
+        (".cam", state.cam, False),
+        (".cam_opt_state[0]", state.cam_opt_state, True),
         (".occupancy", state.occupancy._asdict(), True),
         (".error_map", state.error_map._asdict(), True),
         (".step", state.step, False),
@@ -84,7 +87,8 @@ def state_to_pathdict(state: TrainState, incremental: bool = False) -> dict[str,
     Host counters become 0-d int32 arrays, as JAX leaves them; the step
     generator's state goes under ``.generator``, a key of the port's own
     (the JAX ``.key`` is a (2,) uint32 threefry key).  ``incremental``
-    leaves out both optimizers' states."""
+    leaves out the field's and the delta's optimizer states; the camera
+    group's Adam stays, as in the JAX package."""
     out = {}
     for prefix, tree, attr in _state_parts(state):
         if incremental and prefix.startswith(_OPTIMIZER_PARTS):
@@ -146,6 +150,7 @@ def state_from_pathdict(flat: dict, like: TrainState,
         params=parts[".params"], ema_params=parts[".ema_params"],
         opt_state=parts[".opt_state"], delta=parts[".delta"],
         delta_opt_state=parts[".delta_opt_state[0]"], acc=parts[".acc"],
+        cam=parts[".cam"], cam_opt_state=parts[".cam_opt_state[0]"],
         occupancy=OccupancyGrid(**parts[".occupancy"]),
         error_map=ErrorMapState(**parts[".error_map"]),
         step=parts[".step"], frame_step=parts[".frame_step"], generator=generator,
@@ -203,16 +208,18 @@ def adam_to_jax(opt_state: dict) -> dict:
     }
 
 
-def delta_adam_from_jax(opt_state, device="cpu") -> dict:
-    """The delta's Adam, held in the JAX package as a (ScaleByAdamState,
-    EmptyState) pair -> the port's ``{"mu", "nu", "count"}``."""
+def plain_adam_from_jax(opt_state, device="cpu") -> dict:
+    """The delta's or the camera group's Adam, held in the JAX package as a
+    (ScaleByAdamState, EmptyState) pair -> the port's ``{"mu", "nu",
+    "count"}``."""
     s = opt_state[0]
     return {"mu": tree_to_torch(dict(s.mu), device), "nu": tree_to_torch(dict(s.nu), device),
             "count": int(s.count)}
 
 
-def delta_adam_to_jax(opt_state: dict, like):
-    """The port's delta Adam as ``like``'s (ScaleByAdamState, ...) pair."""
+def plain_adam_to_jax(opt_state: dict, like):
+    """The port's delta or camera Adam as ``like``'s (ScaleByAdamState,
+    ...) pair."""
     s = like[0]._replace(mu=tree_to_numpy(opt_state["mu"]), nu=tree_to_numpy(opt_state["nu"]),
                          count=np.int32(opt_state["count"]))
     return (s,) + tuple(like[1:])
@@ -240,21 +247,26 @@ def occupancy_from_jax(density, bitfield, ema_step, device="cpu") -> OccupancyGr
 
 def state_from_jax(params, ema_params, opt_state, occupancy, step, frame_step,
                    device="cpu", seed: int = 0, delta=None, delta_opt_state=None,
-                   acc=None, error_map=None) -> TrainState:
+                   acc=None, error_map=None, cam=None, cam_opt_state=None) -> TrainState:
     """A port ``TrainState`` from the JAX state's parts (numpy trees;
-    ``occupancy`` as a (density, bitfield, ema_step) triple).  The dynamic
-    parts left as None start fresh (identity delta and accumulated
-    transform, zero Adam, a 1-image 32^2 error map).  The JAX key has no
-    torch counterpart: the step generator is seeded ``seed``."""
+    ``occupancy`` as a (density, bitfield, ema_step) triple).  The parts
+    left as None start fresh (identity delta and accumulated transform, a
+    1-image camera group at the identity, zero Adam, a 1-image 32^2 error
+    map).  The JAX key has no torch counterpart: the step generator is
+    seeded ``seed``."""
     delta = init_delta(device) if delta is None else tree_to_torch(dict(delta), device)
+    cam = init_cam_params(1, device=device) if cam is None else tree_to_torch(dict(cam), device)
     return TrainState(
         params=params_from_jax(params, device),
         ema_params=params_from_jax(ema_params, device),
         opt_state=adam_from_jax(opt_state, device),
         delta=delta,
         delta_opt_state=(plain_adam_init(delta) if delta_opt_state is None
-                         else delta_adam_from_jax(delta_opt_state, device)),
+                         else plain_adam_from_jax(delta_opt_state, device)),
         acc=init_accumulated(device) if acc is None else tree_to_torch(dict(acc), device),
+        cam=cam,
+        cam_opt_state=(plain_adam_init(cam) if cam_opt_state is None
+                       else plain_adam_from_jax(cam_opt_state, device)),
         occupancy=occupancy_from_jax(*occupancy, device=device),
         error_map=(init_error_map(1, device=device) if error_map is None
                    else error_map_from_jax(error_map, device)),
@@ -267,26 +279,30 @@ def state_from_jax(params, ema_params, opt_state, occupancy, step, frame_step,
 def train_state_from_jax(state, device="cpu", seed: int = 0) -> TrainState:
     """A port ``TrainState`` from a whole JAX ``TrainState`` (host copy:
     numpy leaves): the field, its Adam and EMA, the delta and its Adam, the
-    accumulated transform, the occupancy grid and the error map."""
+    accumulated transform, the camera group and its Adam, the occupancy
+    grid and the error map."""
     occ = state.occupancy
     return state_from_jax(state.params, state.ema_params, state.opt_state,
                           (occ.density, occ.bitfield, occ.ema_step),
                           state.step, state.frame_step, device=device, seed=seed,
                           delta=state.delta, delta_opt_state=state.delta_opt_state,
-                          acc=state.acc, error_map=state.error_map)
+                          acc=state.acc, error_map=state.error_map, cam=state.cam,
+                          cam_opt_state=state.cam_opt_state)
 
 
 def train_state_to_jax(state: TrainState, like):
     """The port's state as a JAX ``TrainState`` (numpy leaves) with
-    ``like``'s structure; ``like``'s camera group and key are kept."""
+    ``like``'s structure; ``like``'s key is kept."""
     occ = state.occupancy
     return like._replace(
         params=params_to_jax(state.params),
         ema_params=params_to_jax(state.ema_params),
         opt_state=adam_to_jax(state.opt_state),
         delta=tree_to_numpy(state.delta),
-        delta_opt_state=delta_adam_to_jax(state.delta_opt_state, like.delta_opt_state),
+        delta_opt_state=plain_adam_to_jax(state.delta_opt_state, like.delta_opt_state),
         acc=tree_to_numpy(state.acc),
+        cam=tree_to_numpy(state.cam),
+        cam_opt_state=plain_adam_to_jax(state.cam_opt_state, like.cam_opt_state),
         occupancy=like.occupancy._replace(density=occ.density.cpu().numpy(),
                                           bitfield=occ.bitfield.cpu().numpy(),
                                           ema_step=np.int32(occ.ema_step)),

@@ -54,6 +54,9 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--n_rays", type=int, default=None)
     p.add_argument("--samples_per_ray", type=int, default=None)
+    p.add_argument("--depth_supervision_lambda", type=float, default=None,
+                   help="L2 depth-supervision weight; depth maps load from per-frame "
+                        "depth_path + integer_depth_scale")
     p.add_argument("--save_mesh", action="store_true")
     p.add_argument("--dynamic_save_mesh", action="store_true",
                    help="dynamic scenes: export the canonical mesh when each frame finishes")
@@ -115,6 +118,8 @@ def main(argv=None):
         changes["n_rays"] = args.n_rays
     if args.samples_per_ray:
         changes["samples_per_ray"] = args.samples_per_ray
+    if args.depth_supervision_lambda is not None:
+        changes["depth_supervision_lambda"] = args.depth_supervision_lambda
     if changes:
         config = dataclasses.replace(config, **changes)
     if args.n_steps:
@@ -240,6 +245,7 @@ def screenshot(tb, transforms: str, out_dir: Path, spp: int, frames, log):
             tb.state.ema_params, tb.effective_acc, tb.state.occupancy, cams,
             cams.poses[i], cams.focal[i], cams.principal[i],
             torch.Generator(device=tb.device).manual_seed(i), cfg, background=0.0, spp=spp,
+            **tb._render_extras(),
         )
         fp = out_dir / f"{i:04d}.png"
         _write_png(fp, rgb)
@@ -271,6 +277,7 @@ def render_camera_path(tb, path_spec: str, n_frames: int, out_dir, spp: int, log
             tb.state.ema_params, tb.effective_acc, tb.state.occupancy, cams,
             cams.poses[0], cams.focal[0], cams.principal[0],
             torch.Generator(device=tb.device).manual_seed(k), cfg, background=0.0, spp=spp,
+            **tb._render_extras(),
         )
         fp = out_dir / f"frame_{k:04d}.png"
         _write_png(fp, rgb)
@@ -292,6 +299,7 @@ def _make_per_frame_eval(log):
             tb.state.ema_params, tb.effective_acc, tb.state.occupancy, cams,
             cams.poses[0], cams.focal[0], cams.principal[0],
             torch.Generator(device=tb.device).manual_seed(0), cfg, background=0.0, spp=1,
+            **tb._render_extras(),
         )
         log(f"frame {frame_idx} view-0 PSNR: "
             f"{float(psnr(rgb, srgb_eval_target(tb.images[0]))):.2f} dB")
@@ -318,7 +326,7 @@ def evaluate(tb, test_transforms: str, spp: int, log, save_dir: Path | None = No
             tb.state.ema_params, tb.effective_acc, tb.state.occupancy, cams,
             cams.poses[i], cams.focal[i], cams.principal[i],
             torch.Generator(device=tb.device).manual_seed(i), cfg,
-            background=0.0, spp=spp,
+            background=0.0, spp=spp, **tb._render_extras(),
         )
         target = srgb_eval_target(images[i])
         p, s = float(psnr(rgb, target)), float(ssim(rgb, target))

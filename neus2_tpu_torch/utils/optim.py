@@ -145,13 +145,14 @@ def plain_adam_init(params: Any) -> dict:
 
 
 @torch.no_grad()
-def plain_adam_update(grads: Any, state: dict, lr: float):
+def plain_adam_update(grads: Any, state: dict, lr: float, eps: float = 1e-10):
     """Textbook Adam with bias-corrected moments, update = -lr m_hat /
-    (sqrt(v_hat) + eps), b1 0.9, b2 0.99, eps 1e-10 (base.json
-    "globalmove"): the optimizer of the dynamic scenes' delta transform,
-    not the field's tcnn-style one.  -> (updates, new state); trees as
+    (sqrt(v_hat) + eps), b1 0.9, b2 0.99: with eps 1e-10 (base.json
+    "globalmove") the optimizer of the dynamic scenes' delta transform,
+    with eps 1e-8 the camera group's; not the field's tcnn-style one.
+    One ``count`` for the whole tree.  -> (updates, new state); trees as
     ``grads``."""
-    b1, b2, eps = 0.9, 0.99, 1e-10
+    b1, b2 = 0.9, 0.99
     count = state["count"] + 1
     one = torch.tensor(1.0)
     c1 = float(one - torch.tensor(b1) ** count)  # bias corrections in fp32

@@ -603,3 +603,84 @@ def test_native_snapshot_roundtrip_on_card(cuda, tmp_path):
     for k in saved:
         if not k.startswith((".opt_state", ".delta_opt_state")):
             assert np.array_equal(got[k], saved[k]), k
+
+
+_CAMERA_KNOBS = dict(optimize_extrinsics=True, optimize_exposure=True,
+                     optimize_focal_length=True, max_level_rand_training=True, use_envmap=True,
+                     envmap_res=(8, 16), use_distortion=True, distortion_res=(8, 8),
+                     depth_supervision_lambda=0.5)
+
+
+def test_camera_step_on_card_matches_cpu(cuda):
+    """One step with the whole camera group on: the loss, the camera
+    group's gradients (within 1e-3 of each leaf's max: sums over samples
+    in another order) and its first Adam step (within 2.5e-4: a fresh Adam
+    moves each element by up to cam_lr 1e-4 either way, so a rounding-level
+    gradient may flip one) agree with the CPU; kernel 1 runs for the step."""
+    cfg = dataclasses.replace(_small_config(), **_CAMERA_KNOBS)
+    images, cams = make_sphere_dataset(n_views=4, resolution=32, seed=0).to_device("cpu")
+    state = tt.init_train_state(cfg, 4, seed=0, device="cpu")
+    state = tt.occupancy_prior_sweep(state, cfg)
+    g = torch.Generator().manual_seed(3)
+    cam = {k: v + 0.01 * torch.randn(v.shape, generator=g) for k, v in state.cam.items()}
+    cam["envmap"] = state.cam["envmap"] + 0.3 * torch.rand(state.cam["envmap"].shape, generator=g)
+    state = state._replace(cam=cam)
+    depths = torch.rand((4, 32, 32), generator=g) * 0.5 + 0.5
+    draws = tt.sample_step_draws(torch.Generator().manual_seed(5), cfg, 4)
+    assert draws.max_level_u is not None
+    diff = {"params": state.params, "cam": state.cam}
+    cpu_g, cpu_aux, _ = tt.loss_and_grads(diff, state, images, cams, draws, cfg, depths=depths)
+    cpu_new, _ = tt.train_step(state, images, cams, cfg, draws=draws, depths=depths)
+
+    cstate = _state_to(state, cuda)
+    c_images, c_cams = make_sphere_dataset(n_views=4, resolution=32, seed=0).to_device(cuda)
+    before = segment_tile.segment_sum_rows.launches
+    gpu_g, gpu_aux, _ = tt.loss_and_grads({"params": cstate.params, "cam": cstate.cam}, cstate,
+                                          c_images, c_cams, draws.to(cuda), cfg,
+                                          depths=depths.to(cuda))
+    gpu_new, _ = tt.train_step(cstate, c_images, c_cams, cfg, draws=draws.to(cuda),
+                               depths=depths.to(cuda))
+    torch.cuda.synchronize()
+    assert segment_tile.segment_sum_rows.launches == before + 2
+    np.testing.assert_allclose(float(gpu_aux.loss), float(cpu_aux.loss), rtol=1e-4)
+    for k in sorted(state.cam):
+        c, gg = cpu_g["cam"][k], gpu_g["cam"][k].cpu()
+        assert float(c.abs().max()) > 0, k
+        assert float((gg - c).abs().max()) <= 1e-3 * float(c.abs().max()), k
+        assert float((gpu_new.cam[k].cpu() - cpu_new.cam[k]).abs().max()) <= 2.5e-4, k
+    assert gpu_new.cam_opt_state["count"] == cpu_new.cam_opt_state["count"] == 1
+
+
+def test_render_image_with_extras_on_card_matches_cpu(cuda):
+    """``render_image`` with a learned envmap and distortion grid, exposure
+    and the ACES curve: the card's image, depth and opacity within 3e-4 of
+    the CPU's (the geometric-init field, whose hash tables are near zero,
+    so no sample sits at a jump of the interpolant's gradient)."""
+    from neus2_tpu_torch.engine import occupancy as occ
+    from neus2_tpu_torch.engine.render import RenderConfig, render_image
+    from neus2_tpu_torch.models.field import init_field
+
+    cfg = _small_config()
+    params = init_field(torch.Generator().manual_seed(0), cfg.field)
+    grid = occ.init_occupancy(1)
+    c = (torch.arange(128) + 0.5) / 128 - 0.5
+    ball = (c[:, None, None] ** 2 + c[None, :, None] ** 2 + c[None, None, :] ** 2) < 0.3 ** 2
+    dens = torch.where(ball, 0.1, 0.0)[None]
+    grid = grid._replace(density=dens, bitfield=dens > 0.05)
+    g = torch.Generator().manual_seed(1)
+    env = torch.rand((8, 16, 4), generator=g) * 0.6
+    dist = torch.randn((8, 8, 2), generator=g) * 0.01
+    cams = make_sphere_dataset(n_views=2, resolution=24, seed=3).cameras()
+    rcfg = RenderConfig(field=cfg.field, samples_per_ray=256, n_candidates=128)
+
+    def run(device):
+        p, o = _to(params, device), _to(grid, device)
+        cm = _to(cams, device)
+        return [t.cpu() for t in render_image(
+            p, None, o, cm, cm.poses[0], cm.focal[0], cm.principal[0], None, rcfg,
+            background=0.2, spp=1, envmap=env.to(device), distortion=dist.to(device),
+            exposure=0.5, tonemap="aces")]
+
+    for a, b in zip(run(cuda), run("cpu")):
+        assert a.shape == b.shape and torch.isfinite(a).all()
+        assert float((a - b).abs().max()) <= 3e-4

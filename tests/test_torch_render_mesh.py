@@ -42,6 +42,7 @@ from neus2_tpu_torch.engine.rays import Cameras as TCameras
 from neus2_tpu_torch.models import field as tf
 from neus2_tpu_torch.ops import image as timage
 from neus2_tpu_torch.ops.hashgrid import HashGridConfig as TGrid
+from neus2_tpu_torch.ops.tonemap import apply_output_tonemap
 from neus2_tpu_torch.ops.warp import scene_aabb as taabb
 
 torch.set_num_threads(2)
@@ -155,8 +156,11 @@ def test_render_image_jittered_passes(scene):
     miss = one[2] == 0
     assert miss.any() and torch.equal(four[0][miss], one[0][miss])
     assert float((four[0] - one[0]).abs().max()) < 0.2
-    with pytest.raises(NotImplementedError):
-        trender.render_image(*args, None, scene["tcfg"], tonemap="aces")
+    # The output curve applies to the shaded frame (tests/test_torch_camera.py
+    # holds it against the JAX package's).
+    aces = trender.render_image(*args, None, scene["tcfg"], background=0.2, spp=1,
+                                tonemap="aces")
+    assert torch.equal(aces[0], torch.clamp(apply_output_tonemap(one[0], 0.0, "aces"), 0, 1))
 
 
 def test_sdf_grid_and_extract_mesh(scene):

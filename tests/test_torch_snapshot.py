@@ -44,9 +44,9 @@ _TRAIN = dict(n_rays=64, samples_per_ray=16, n_candidates=32, delta_n_rays=32,
 _HYPER = dict(first_frame_max_training_step=3, next_frame_max_training_step=10,
               predict_global_movement=True, predict_global_movement_training_step=6)
 _FRAMES = dict(n_frames=2, translation_per_frame=(0.03, 0.0, 0.0), n_views=4, resolution=16)
-# The JAX state's leaves the port has no counterpart of (camera-side
-# extras, the threefry key), and the port's own generator state.
-_JAX_ONLY = (".cam", ".cam_opt_state", ".key")
+# The JAX state's leaf the port has no counterpart of (the threefry key);
+# the port has its own generator state instead.
+_JAX_ONLY = (".key",)
 
 
 @pytest.fixture(scope="module")
@@ -211,7 +211,7 @@ def test_port_snapshot_loads_into_jax(jtb, port_base, tmp_path, capsys, incremen
     before = jax_pathdict(jtb.state)
     capsys.readouterr()
     jtb.load_snapshot(path)
-    assert "state fields absent" in capsys.readouterr().out  # .cam*, .key
+    assert "state fields absent" in capsys.readouterr().out  # .key
     assert (jtb.current_training_time_frame, jtb.training_step) == (0, 3)
     got = jax_pathdict(jtb.state)
     want = port_pathdict(tb.state)
