@@ -38,7 +38,15 @@ runs them, with the launch counts set to 0 just before and read just after:
     the envmap and distortion grid, the per-ray max level, depth
     supervision), loaded from files written with known camera errors:
     kernel 1 once a step, the errors before and after, a held-out view and
-    a tonemapped render.
+    a tonemapped render;
+  * ``lens_phase``: the static Testbed at the same width with fp16 image
+    storage, loaded from files traced through a Brown-Conrady lens (PNG
+    and half-float EXR frames of two sizes): kernel 1 once a step, the
+    held-out views scored with the lens and without it, then 20 steps each
+    of a rolling-shutter, an FTheta and a per-pixel ray-file scene;
+  * ``bf16_phase``: the Testbed phase's run with bf16 compute, after a
+    check that the bf16 field on the card agrees with the CPU's: kernel 1
+    once a step and the held-out PSNR beside the fp32 run's.
 
 Exits non-zero on any failure; the last line of a successful run is the
 device JSON, the line before it the ``kernels`` JSON.
@@ -84,6 +92,21 @@ CAMERA_DEPTH_SCALE = 1e-4  # integer_depth_scale of the uint16 depth PNGs
 CAMERA_DEPARTURES = dict(optimize_extrinsics=True, optimize_exposure=True,
                          optimize_focal_length=True, max_level_rand_training=True,
                          use_envmap=True, use_distortion=True, depth_supervision_lambda=0.1)
+LENS_STEPS = 200
+TESTBED_PROFILE_AT = 100
+LENS_K = (-0.1, 0.02, 0.001, -0.001)  # k1, k2, p1, p2 of lens_phase's scenes
+CAMERA_MODEL_STEPS = 20  # lens_phase's rolling-shutter, FTheta and ray-file runs
+ROLLING_SHUTTER = (0.0, 0.0, 0.5)
+ROLLING_SHIFT = (0.02, 0.0, 0.0)  # the end-of-exposure pose's translation, ngp units
+FTHETA_P1 = 3.5e-3  # alpha = p1 r, r in lens pixels of a 256 x 256 lens
+BF16_PSNR_MARGIN = 0.3  # dB, tests/test_train_e2e.py::test_bf16_compute_quality_parity
+# The bf16 field on the card against the CPU's bf16 path, each within this
+# share of its max: a hidden activation or tangent that cuBLAS's summation
+# order moves across a bf16 rounding boundary moves it by one bf16 ulp
+# (2^-8 of itself), so outputs move up to ~1e-3 (3.0e-4 seen on an H100)
+# where bf16 itself moves them ~1e-2; the MLP gradients read 7.8e-4 on an
+# H100, so 2e-3; the table gradients as field_agrees_with_cpu's fp32 bound.
+BF16_FIELD_LIMITS = {"outputs": 1e-3, "tables": 1e-2, "mlp": 2e-3}
 EVAL_SPP = 8
 MESH_RES = 256
 # The batched layouts' index padding past each level's M updates, as the
@@ -408,6 +431,10 @@ def testbed_phase(torch, st, cfg, hyper, steps: int = TESTBED_STEPS) -> dict:
     held-out views at the eval protocol (spp 8, black background, min
     transmittance 1e-4) and score them, export the mesh at 256^3.
 
+    Host ms a step over the steps after WARMUP_STEPS; host and device ms a
+    step and device launches a step over ``run_testbed``'s windows from
+    TESTBED_PROFILE_AT, the baseline of lens_phase and bf16_phase.
+
     Fails unless kernel 1 ran once per training step, the loss is finite
     and fell, each held-out PSNR beats the all-black image's, and the mesh
     is a closed surface around the sphere (> 1000 triangles, median vertex
@@ -417,9 +444,7 @@ def testbed_phase(torch, st, cfg, hyper, steps: int = TESTBED_STEPS) -> dict:
     from neus2_tpu_torch.api.testbed import Testbed
     from neus2_tpu_torch.data.synthetic import make_sphere_dataset
     from neus2_tpu_torch.engine.mesh import sdf_grid
-    from neus2_tpu_torch.engine.render import RenderConfig, render_image
     from neus2_tpu_torch.native import marching_cubes
-    from neus2_tpu_torch.ops.image import psnr, srgb_eval_target, ssim
     from neus2_tpu_torch.ops.warp import scene_aabb
 
     torch.cuda.reset_peak_memory_stats()
@@ -431,51 +456,21 @@ def testbed_phase(torch, st, cfg, hyper, steps: int = TESTBED_STEPS) -> dict:
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
 
-    reads, launches_after = [], []
-    torch.cuda.synchronize()
-    reset_launches(st)
-    t0 = time.perf_counter()
-    while tb.frame():
-        launches_after.append(st.segment_sum_rows.launches)
-        if tb.training_step % 16 == 0 or tb.training_step == 1:
-            reads.append((tb.loss_scalar, tb.last_aux.n_rays_counted))
-        if tb.training_step == WARMUP_STEPS:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-    torch.cuda.synchronize()
-    step_s = (time.perf_counter() - t0) / (steps - WARMUP_STEPS)
-    launches = st.segment_sum_rows.launches
+    n_rays = []
 
-    if tb.training_step != steps or launches_after != list(range(1, steps + 1)):
-        raise AssertionError(f"Testbed: {tb.training_step} steps, {launches} kernel launches")
-    losses = [r[0] for r in reads]
-    if not all(v == v and abs(v) < 1e30 for v in losses):
-        raise AssertionError(f"Testbed: non-finite losses {losses}")
+    def read_rays(tb):
+        if tb.training_step % 16 == 0 or tb.training_step == 1:
+            n_rays.append(tb.last_aux.n_rays_counted)
+
+    run_out = run_testbed(torch, st, tb, TESTBED_PROFILE_AT, on_step=read_rays)
+    losses = run_out["loss_reads"]
+    if tb.training_step != steps:
+        raise AssertionError(f"Testbed: {tb.training_step} steps of {steps}")
     if not sum(losses[-2:]) / 2 < losses[0]:
         raise AssertionError(f"Testbed: the loss did not fall: {losses}")
 
     tb.prepare_for_test()
-    held = make_sphere_dataset(n_views=2, resolution=SCENE_RES, seed=1)
-    images, cams = held.to_device("cuda")
-    rcfg = RenderConfig(field=tb.config.field, aabb_scale=tb.config.aabb_scale,
-                        min_transmittance=1e-4)
-    views = []
-    for i in range(held.n_images):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        rgb, _, _ = render_image(tb.state.ema_params, tb.effective_acc, tb.state.occupancy,
-                                 cams, cams.poses[i], cams.focal[i], cams.principal[i],
-                                 torch.Generator(device="cuda").manual_seed(i), rcfg,
-                                 background=0.0, spp=EVAL_SPP)
-        torch.cuda.synchronize()
-        render_s = time.perf_counter() - t0
-        target = srgb_eval_target(images[i])
-        v = {"psnr": float(psnr(rgb, target)), "ssim": float(ssim(rgb, target)),
-             "black_psnr": float(psnr(torch.zeros_like(target), target)),
-             "render_ms": render_s * 1e3}
-        if not (torch.isfinite(rgb).all() and v["psnr"] > v["black_psnr"]):
-            raise AssertionError(f"Testbed: held-out view {i} {v}")
-        views.append(v)
+    views = held_out_views(torch, tb, "Testbed")
 
     box = scene_aabb(tb.config.aabb_scale)
     params = tb.state.ema_params
@@ -495,13 +490,12 @@ def testbed_phase(torch, st, cfg, hyper, steps: int = TESTBED_STEPS) -> dict:
     if len(tris) <= 1000 or not 0.15 < radius < 0.45:
         raise AssertionError(f"Testbed mesh: {len(tris)} triangles, median radius {radius}")
 
-    w, h = held.resolution
-    rays = sum(r[1] for r in reads) / len(reads)
+    w = h = SCENE_RES
+    rays = sum(n_rays) / len(n_rays)
     out = {
-        "steps": steps, "load_s": load_s, "ms_per_step": step_s * 1e3,
-        "trained_rays_per_s": rays / step_s, "n_rays_counted_mean": rays,
-        "loss_reads": losses, "launches": launches, "launches_per_step": launches / steps,
-        "batch_bucket": tb.batch_bucket, "views": views,
+        **run_out, "load_s": load_s,
+        "trained_rays_per_s": rays / run_out["ms_per_step"] * 1e3, "n_rays_counted_mean": rays,
+        "launches_per_step": run_out["launches"] / steps, "views": views,
         "render_ms_per_image": sum(v["render_ms"] for v in views) / len(views),
         "rendered_rays_per_s": w * h * EVAL_SPP * len(views)
         / (sum(v["render_ms"] for v in views) / 1e3),
@@ -970,7 +964,6 @@ def camera_phase(torch, st, cfg, hyper, static_device_ms: float) -> dict:
     on a camera group that did not move, and on a tonemapped render more
     than 1e-6 from ``apply_output_tonemap`` of the identity render."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     from neus2_tpu_torch.api import testbed as testbed_mod
     from neus2_tpu_torch.data.synthetic import make_sphere_dataset
@@ -995,39 +988,10 @@ def camera_phase(torch, st, cfg, hyper, static_device_ms: float) -> dict:
     cam0 = {k: v.clone() for k, v in tb.state.cam.items()}
     before = camera_errors(cam0, truth)
 
-    reads, launches_after, prof, top = [], [], None, []
-    host_ms = device_ms = None
-    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_launches(st)
-    while True:
-        if tb.training_step == CAMERA_PROFILE_AT:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-        if tb.training_step == CAMERA_PROFILE_AT + PROFILE_WINDOW:
-            torch.cuda.synchronize()
-            host_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_WINDOW
-            prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-            prof.start()
-        if not tb.frame():
-            break
-        launches_after.append(st.segment_sum_rows.launches)
-        if tb.training_step % 16 == 0 or tb.training_step == 1:
-            reads.append(tb.loss_scalar)
-        if prof is not None and tb.training_step == CAMERA_PROFILE_AT + 2 * PROFILE_WINDOW:
-            torch.cuda.synchronize()
-            prof.stop()
-            device_ms = device_ms_per_step(prof, PROFILE_WINDOW)
-            top = [{"name": e.key[:60], "ms_per_step": e.self_device_time_total / 1e3
-                    / PROFILE_WINDOW} for e in device_events(prof)[:8]]
-            prof = None
-    torch.cuda.synchronize()
-    launches = st.segment_sum_rows.launches
-    if tb.training_step != CAMERA_STEPS or launches_after != list(range(1, CAMERA_STEPS + 1)):
-        raise AssertionError(f"camera phase: {tb.training_step} steps, {launches} kernel-1 "
-                             "launches")
-    if not all(v == v and abs(v) < 1e30 for v in reads):
-        raise AssertionError(f"camera phase: non-finite losses {reads}")
+    run_out = run_testbed(torch, st, tb, CAMERA_PROFILE_AT)
+    if tb.training_step != CAMERA_STEPS:
+        raise AssertionError(f"camera phase: {tb.training_step} steps of {CAMERA_STEPS}")
     moved = {k: float((tb.state.cam[k] - cam0[k]).abs().max()) for k in cam0}
     if not all(moved[k] > 0.0 for k in cam0 if k != "latent"):
         raise AssertionError(f"camera phase: the camera group did not move: {moved}")
@@ -1061,11 +1025,9 @@ def camera_phase(torch, st, cfg, hyper, static_device_ms: float) -> dict:
         raise AssertionError(f"camera phase: tonemapped render max|diff| {tone_err}")
 
     out = {
-        "steps": CAMERA_STEPS, "write_s": write_s, "load_s": load_s,
-        "loss_first": reads[0], "loss_last": reads[-1], "loss_reads": reads,
-        "launches": launches, "launches_per_step": launches / CAMERA_STEPS,
-        "host_ms_per_step": host_ms, "device_ms_per_step": device_ms,
-        "static_device_ms_per_step": static_device_ms, "top_device": top,
+        **run_out, "write_s": write_s, "load_s": load_s,
+        "launches_per_step": run_out["launches"] / CAMERA_STEPS,
+        "static_device_ms_per_step": static_device_ms,
         "errors_before": before, "errors_after": after,
         "camera_moved_max_abs": moved, "held_out_view": view, "tonemap_max_abs_err": tone_err,
         "envmap_alpha_mean": float(tb.state.cam["envmap"][..., 3].mean()),
@@ -1075,13 +1037,360 @@ def camera_phase(torch, st, cfg, hyper, static_device_ms: float) -> dict:
     return out
 
 
-def field_agrees_with_cpu(torch, cfg, n: int = 16384) -> dict:
+def newton_undistort(k, x, y, iters: int = 20):
+    """The scene writer's own Brown-Conrady inverse: float64 Newton steps
+    with the analytic Jacobian of distort(x, y) = (x, y) + the deltas."""
+    import numpy as np
+
+    k1, k2, p1, p2 = k
+    xu, yu = np.array(x, np.float64), np.array(y, np.float64)
+    for _ in range(iters):
+        r2 = xu * xu + yu * yu
+        rad = k1 * r2 + k2 * r2 * r2
+        drad = k1 + 2.0 * k2 * r2
+        fx = xu * (1 + rad) + 2 * p1 * xu * yu + p2 * (r2 + 2 * xu * xu) - x
+        fy = yu * (1 + rad) + 2 * p2 * xu * yu + p1 * (r2 + 2 * yu * yu) - y
+        a = 1 + rad + 2 * xu * xu * drad + 2 * p1 * yu + 6 * p2 * xu
+        b = 2 * xu * yu * drad + 2 * p1 * xu + 2 * p2 * yu
+        d = 1 + rad + 2 * yu * yu * drad + 2 * p2 * xu + 6 * p1 * yu
+        det = a * d - b * b
+        xu, yu = xu - (d * fx - b * fy) / det, yu - (-b * fx + a * fy) / det
+    return xu, yu
+
+
+def write_lens_scene(out_dir: Path, model: str, n_views: int, res: int, seed: int,
+                     name: str = "transforms") -> Path:
+    """A synthetic sphere scene as files, every pixel traced through the
+    camera ``model`` with numpy (not the port) and shaded analytically
+    (``ray_sphere``, ``shade_sphere``): "lens" (Brown-Conrady LENS_K; with
+    more than 2 views the second half are res x 3/4 res (256 x 192)
+    half-float ZIP EXR frames, the rest sRGB PNGs), "rolling_shutter" (pinhole, the
+    pose moving by ROLLING_SHIFT over ROLLING_SHUTTER), "ftheta" (a
+    fisheye of alpha = FTHETA_P1 r) or "rays" (the lens's rays written to
+    ``rays_<stem>.dat`` files, the json naming no lens).  -> the json."""
+    import numpy as np
+    from PIL import Image
+
+    from neus2_tpu_torch.data.dataset import ngp_matrix_to_nerf
+    from neus2_tpu_torch.data.exr import write_exr
+    from neus2_tpu_torch.data.synthetic import (SPHERE_CENTER, SPHERE_RADIUS,
+                                                make_sphere_dataset, ray_sphere, shade_sphere)
+
+    ds = make_sphere_dataset(n_views=n_views, resolution=res, seed=seed)
+    offset = np.asarray(ds.offset, np.float32)
+    f = float(ds.focal[0, 0])
+    meta = {"from_na": True, "scale": ds.scale, "offset": offset.tolist(), "aabb_scale": 1}
+    if model == "lens":
+        meta.update(zip(("k1", "k2", "p1", "p2"), LENS_K))
+    elif model == "rolling_shutter":
+        meta["rolling_shutter"] = list(ROLLING_SHUTTER)
+    elif model == "ftheta":
+        meta.update({f"ftheta_p{i}": v for i, v in enumerate((0.0, FTHETA_P1, 0.0, 0.0, 0.0))})
+        meta.update(w=res, h=res)
+    frames = []
+    for i in range(n_views):
+        exr_frame = model == "lens" and n_views > 2 and i >= n_views // 2
+        w, h = res, (res * 3 // 4 if exr_frame else res)
+        uu, vv = np.meshgrid((np.arange(w) + 0.5) / w, (np.arange(h) + 0.5) / h)
+        x, y = (uu - 0.5) * w / f, (vv - 0.5) * h / f
+        pose = ds.poses[i].astype(np.float64)
+        if model == "ftheta":
+            xp, yp = (uu - 0.5) * res, (vv - 0.5) * res
+            r = np.hypot(xp, yp)
+            a = FTHETA_P1 * r
+            s = np.sin(a) / np.maximum(r, 1e-12)
+            cam = np.stack([s * xp, s * yp, np.cos(a)], -1)
+        else:
+            if model in ("lens", "rays"):
+                x, y = newton_undistort(LENS_K, x, y)
+            cam = np.stack([x, y, np.ones_like(x)], -1)
+        poses = np.broadcast_to(pose, (h, w, 3, 4))
+        end = pose.copy()
+        end[:, 3] += ROLLING_SHIFT
+        if model == "rolling_shutter":
+            t0, du, dv = ROLLING_SHUTTER
+            t = (t0 + du * uu + dv * vv)[..., None, None]
+            poses = pose + (end - pose) * t
+        d = np.einsum("hwij,hwj->hwi", poses[..., :3], cam)
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        o = poses[..., 3]
+        hit, t = ray_sphere(o, d, SPHERE_CENTER, SPHERE_RADIUS)
+        n = (o + t[..., None] * d - SPHERE_CENTER) / SPHERE_RADIUS
+        a = hit[..., None].astype(np.float32)
+        lin = shade_sphere(n.astype(np.float32)) * a
+        stem = f"{name}_{i:03d}"
+        if exr_frame:
+            write_exr(out_dir / f"{stem}.exr", {"R": lin[..., 0], "G": lin[..., 1],
+                                                 "B": lin[..., 2], "A": a[..., 0]},
+                      compression="zip", half=True)
+            file = f"{stem}.exr"
+        else:
+            srgb = np.where(lin <= 0.0031308, 12.92 * lin, 1.055 * np.power(
+                np.maximum(lin, 0.0031308), 1.0 / 2.4) - 0.055)
+            rgba = np.concatenate([np.clip(srgb, 0.0, 1.0), a], -1)
+            Image.fromarray((rgba * 255.0 + 0.5).astype(np.uint8)).save(out_dir / f"{stem}.png")
+            file = f"{stem}.png"
+        if model == "rays":  # nerf coordinates: the loader applies nerf_ray_to_ngp
+            rays = np.concatenate([(o[..., [2, 0, 1]] - offset[[2, 0, 1]]) / ds.scale,
+                                   d[..., [2, 0, 1]]], -1)
+            rays.astype(np.float32).tofile(out_dir / f"rays_{stem}.dat")
+
+        def nerf(m):
+            return np.concatenate([ngp_matrix_to_nerf(m.astype(np.float32), ds.scale, offset,
+                                                      True), [[0.0, 0.0, 0.0, 1.0]]]).tolist()
+
+        frame = {"file_path": file, "transform_matrix": nerf(pose),
+                 "intrinsic_matrix": [[f, 0.0, w / 2], [0.0, f, h / 2], [0.0, 0.0, 1.0]]}
+        if model == "rolling_shutter":
+            frame["transform_matrix_end"] = nerf(end)
+        frames.append(frame)
+    meta["frames"] = frames
+    path = out_dir / f"{name}.json"
+    path.write_text(json.dumps(meta))
+    return path
+
+
+def run_testbed(torch, st, tb, profile_at: int | None = None, on_step=None) -> dict:
+    """``while tb.frame()`` with kernel 1's launches read a step, each
+    step's loss kept (no host sync) and ``on_step(tb)`` called after each
+    step.  Host ms a step over the steps after WARMUP_STEPS, the traced
+    ones and the trace's analysis left out; with ``profile_at``, host ms a step over PROFILE_WINDOW
+    steps from that step, then device ms, device kernel launches and the
+    top kernels a step over as many traced.  The loss reads are those of
+    step 1 and every 16th step.  Fails unless kernel 1 ran once a step and
+    every loss is finite."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from neus2_tpu_torch.api import testbed as testbed_mod
+
+    launches_after, prof, out = [], None, {}
+    traced_s, t_warm = 0.0, None
+    torch.cuda.synchronize()
+    reset_launches(st)
+    t_start = time.perf_counter()
+    with LossRecorder(testbed_mod) as rec:
+        while True:
+            if tb.training_step == WARMUP_STEPS:
+                torch.cuda.synchronize()
+                t_warm = time.perf_counter()
+            if tb.training_step == profile_at:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            if profile_at is not None and tb.training_step == profile_at + PROFILE_WINDOW:
+                torch.cuda.synchronize()
+                t_trace = time.perf_counter()
+                out["host_ms_per_step"] = (t_trace - t0) * 1e3 / PROFILE_WINDOW
+                prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                prof.start()
+            if not tb.frame():
+                break
+            launches_after.append(st.segment_sum_rows.launches)
+            if prof is not None and tb.training_step == profile_at + 2 * PROFILE_WINDOW:
+                torch.cuda.synchronize()
+                prof.stop()
+                evs = device_events(prof)
+                out["device_ms_per_step"] = device_ms_per_step(prof, PROFILE_WINDOW)
+                out["device_launches_per_step"] = sum(e.count for e in evs) / PROFILE_WINDOW
+                out["top_device"] = [{"name": e.key[:60], "ms_per_step":
+                                      e.self_device_time_total / 1e3 / PROFILE_WINDOW}
+                                     for e in evs[:8]]
+                prof = None
+                traced_s = time.perf_counter() - t_trace  # the trace's analysis too
+            if on_step is not None:
+                on_step(tb)
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    out["wall_s"] = t_end - t_start
+    steps = tb.training_step
+    timed = steps - WARMUP_STEPS - (PROFILE_WINDOW if traced_s else 0)
+    if t_warm is not None and timed > 0:
+        out["ms_per_step"] = (t_end - t_warm - traced_s) * 1e3 / timed
+    losses = torch.stack(rec.losses).float().cpu().tolist()
+    if launches_after != list(range(1, steps + 1)) or len(losses) != steps:
+        raise AssertionError(f"{steps} steps, {st.segment_sum_rows.launches} kernel-1 launches")
+    if not all(v == v and abs(v) < 1e30 for v in losses):
+        raise AssertionError(f"non-finite losses {losses}")
+    reads = [v for i, v in enumerate(losses, 1) if i == 1 or i % 16 == 0]
+    out.update(steps=steps, launches=st.segment_sum_rows.launches, loss_first=losses[0],
+               loss_last=losses[-1], loss_reads=reads, batch_bucket=tb.batch_bucket)
+    return out
+
+
+def lens_phase(torch, st, cfg, hyper, static: dict, pinhole: dict) -> dict:
+    """The static Testbed at full width through the lens models, as a user
+    with a distorted capture runs it: ``write_lens_scene`` (16 views,
+    Brown-Conrady, 8 PNGs at 256^2 and 8 half-float EXRs at 256 x 192),
+    ``load_training_data``, LENS_STEPS steps with fp16 image storage (the
+    phase's only departure from base.json), the two held-out views of
+    camera seed 1 (written through the same lens) scored by ``run.evaluate``
+    with the lens and with ``render_with_camera_distortion`` off; then
+    CAMERA_MODEL_STEPS steps each of a rolling-shutter, an FTheta and a
+    ray-file scene (16 views at 256^2, fp32 storage).  ``static`` holds
+    profile_phase's numbers and ``pinhole`` testbed_phase's, whose windows
+    are this run's (the same loop and steps): the "over_pinhole_testbed"
+    differences are those of the lens, fp16 storage, the mixed sizes and
+    the scene together.
+
+    Fails unless kernel 1 ran once a step in every run, every loss is
+    finite, the lens run's loss fell, and the lens beats its absence on
+    the held-out views."""
+    import numpy as np
+
+    from neus2_tpu_torch import run
+    from neus2_tpu_torch.api.testbed import Testbed
+
+    print("lens_phase departures from base.json: image_dtype float16", flush=True)
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        path = write_lens_scene(Path(d), "lens", 16, SCENE_RES, seed=0)
+        held = write_lens_scene(Path(d), "lens", 2, SCENE_RES, seed=1, name="held_out")
+        out["write_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tb = Testbed(config=cfg, hyper=dataclasses.replace(
+            hyper, first_frame_max_training_step=LENS_STEPS), seed=0, device="cuda",
+            image_dtype=torch.float16)
+        tb.load_training_data(path)
+        torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t0
+        cams = tb.cameras
+        if (cams.distortion is None or cams.image_sizes is None
+                or tb.images.dtype != torch.float16):
+            raise AssertionError("lens phase: the lens, the sizes or fp16 storage did not load")
+        sizes = sorted({tuple(v) for v in cams.image_sizes.tolist()})
+        run_out = run_testbed(torch, st, tb, TESTBED_PROFILE_AT)
+        if not run_out["loss_last"] < run_out["loss_first"]:
+            raise AssertionError(f"lens phase: the loss did not fall {run_out}")
+        tb.prepare_for_test()
+        held_psnr = {}
+        for name, on in (("with_lens", True), ("lens_stripped", False)):
+            tb.render_with_camera_distortion = on
+            t0 = time.perf_counter()
+            psnrs, ssims = run.evaluate(tb, str(held), EVAL_SPP, lambda *a: None)
+            held_psnr[name] = {"psnr": psnrs, "ssim": ssims,
+                               "eval_s": time.perf_counter() - t0}
+        tb.render_with_camera_distortion = True
+        gain = np.mean(held_psnr["with_lens"]["psnr"]) - np.mean(held_psnr["lens_stripped"]["psnr"])
+        if not gain > 0.0:
+            raise AssertionError(f"lens phase: the lens does not beat its absence {held_psnr}")
+        n_texels = tb.images.numel()
+        out.update({
+            "steps": LENS_STEPS, "image_sizes": sizes, **run_out,
+            "static_device_ms_per_step": static["device_ms_per_step"],
+            "static_host_ms_per_step": static["ms_per_step"],
+            "static_device_launches_per_step": static["launches_per_step"],
+            **{f"pinhole_testbed_{k}": pinhole[k] for k in
+               ("device_ms_per_step", "host_ms_per_step", "device_launches_per_step",
+                "batch_bucket")},
+            **{f"{k}_over_pinhole_testbed": run_out[k] - pinhole[k] for k in
+               ("device_ms_per_step", "host_ms_per_step", "device_launches_per_step")},
+            "image_bytes_fp16": n_texels * 2, "image_bytes_fp32": n_texels * 4,
+            "held_out": held_psnr,
+        })
+        del tb
+        others = {}
+        for model in ("rolling_shutter", "ftheta", "rays"):
+            t0 = time.perf_counter()
+            mpath = write_lens_scene(Path(d), model, 16, SCENE_RES, seed=0, name=model)
+            tb = Testbed(config=cfg, hyper=dataclasses.replace(
+                hyper, first_frame_max_training_step=CAMERA_MODEL_STEPS), seed=0,
+                device="cuda")
+            tb.load_training_data(mpath)
+            if getattr(tb.cameras, model) is None:  # the Cameras field of that name
+                raise AssertionError(f"lens phase: the {model} scene's lens did not load")
+            r = run_testbed(torch, st, tb)
+            others[model] = {k: r[k] for k in ("steps", "launches", "loss_first", "loss_last",
+                                               "wall_s")}
+            others[model]["write_and_load_s"] = time.perf_counter() - t0 - r["wall_s"]
+            del tb
+    out["camera_models"] = others
+    out["launches_all"] = out["launches"] + sum(o["launches"] for o in others.values())
+    print("lens_phase " + json.dumps(out), flush=True)
+    return out
+
+
+def held_out_views(torch, tb, what: str) -> list:
+    """The two held-out views of camera seed 1 (16-view 256^2 sphere
+    scene) rendered at the eval protocol (spp 8, black background, min
+    transmittance 1e-4) and scored -> per view {psnr, ssim, black_psnr,
+    render_ms}.  Fails unless each render is finite and beats the
+    all-black image."""
+    from neus2_tpu_torch.data.synthetic import make_sphere_dataset
+    from neus2_tpu_torch.engine.render import RenderConfig, render_image
+    from neus2_tpu_torch.ops.image import psnr, srgb_eval_target, ssim
+
+    held = make_sphere_dataset(n_views=2, resolution=SCENE_RES, seed=1)
+    images, cams = held.to_device("cuda")
+    rcfg = RenderConfig(field=tb.config.field, aabb_scale=tb.config.aabb_scale,
+                        min_transmittance=1e-4)
+    views = []
+    for i in range(held.n_images):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rgb, _, _ = render_image(tb.state.ema_params, tb.effective_acc, tb.state.occupancy,
+                                 cams, cams.poses[i], cams.focal[i], cams.principal[i],
+                                 torch.Generator(device="cuda").manual_seed(i), rcfg,
+                                 background=0.0, spp=EVAL_SPP)
+        torch.cuda.synchronize()
+        render_s = time.perf_counter() - t0
+        target = srgb_eval_target(images[i])
+        v = {"psnr": float(psnr(rgb, target)), "ssim": float(ssim(rgb, target)),
+             "black_psnr": float(psnr(torch.zeros_like(target), target)),
+             "render_ms": render_s * 1e3}
+        if not (torch.isfinite(rgb).all() and v["psnr"] > v["black_psnr"]):
+            raise AssertionError(f"{what}: held-out view {i} {v}")
+        views.append(v)
+    return views
+
+
+def bf16_phase(torch, st, cfg, hyper, testbed: dict, static: dict) -> dict:
+    """testbed_phase's run (TESTBED_STEPS steps on the 16-view 256^2
+    sphere, the same held-out views) with bf16 compute, after the bf16
+    field on the card is held against the CPU's bf16 path
+    (BF16_FIELD_LIMITS): kernel 1 once a step, host and device ms a step
+    over the same windows as the fp32 Testbed's and beside profile_phase's
+    fp32 step, and the held-out PSNR beside the fp32 Testbed's.  Fails on
+    a non-finite loss,
+    on kernel-1 launches other than one a step, and on a held-out PSNR
+    more than BF16_PSNR_MARGIN dB below the fp32 run's."""
+    import numpy as np
+
+    from neus2_tpu_torch.api.testbed import Testbed
+    from neus2_tpu_torch.data.synthetic import make_sphere_dataset
+
+    print("bf16_phase departures from base.json: compute_dtype bfloat16", flush=True)
+    cfg = dataclasses.replace(cfg, field=dataclasses.replace(cfg.field,
+                                                             compute_dtype=torch.bfloat16))
+    field = field_agrees_with_cpu(torch, cfg, limits=BF16_FIELD_LIMITS)
+    tb = Testbed(config=cfg, hyper=dataclasses.replace(
+        hyper, first_frame_max_training_step=TESTBED_STEPS), seed=0, device="cuda")
+    tb.load_training_data_from_datasets([make_sphere_dataset(n_views=16, resolution=SCENE_RES,
+                                                             seed=0)])
+    run_out = run_testbed(torch, st, tb, TESTBED_PROFILE_AT)
+    tb.prepare_for_test()
+    psnrs = [v["psnr"] for v in held_out_views(torch, tb, "bf16 phase")]
+    fp32 = [v["psnr"] for v in testbed["views"]]
+    if not np.mean(psnrs) >= np.mean(fp32) - BF16_PSNR_MARGIN:
+        raise AssertionError(f"bf16 phase: held-out PSNR {psnrs} vs fp32 {fp32}")
+    out = {**run_out, "held_out_psnr": psnrs, "fp32_held_out_psnr": fp32,
+           "fp32_static_device_ms_per_step": static["device_ms_per_step"],
+           **{f"fp32_testbed_{k}": testbed[k] for k in
+              ("ms_per_step", "device_ms_per_step", "host_ms_per_step",
+               "device_launches_per_step", "batch_bucket")},
+           **{f"{k}_over_fp32_testbed": run_out[k] - testbed[k] for k in
+              ("device_ms_per_step", "host_ms_per_step", "device_launches_per_step")},
+           "field_vs_cpu": field}
+    print("bf16_phase " + json.dumps(out), flush=True)
+    return out
+
+
+def field_agrees_with_cpu(torch, cfg, n: int = 16384, limits: dict | None = None) -> dict:
     """The field and its gradients at full width on the card (through the
     segment-sum kernel) vs the same inputs on the CPU (exact scatter):
     outputs within 1e-4 of their max, MLP and variance gradients within
     1e-3 of their max, table gradients within 1e-2 of their max (the
     kernel sums bf16-quantized updates, as the reference's fp16 atomics
-    do)."""
+    do); ``limits`` replaces those three bounds."""
     from neus2_tpu_torch.models.field import field_forward, init_field
     from neus2_tpu_torch.utils.tree import tree_leaves, tree_map
 
@@ -1114,10 +1423,11 @@ def field_agrees_with_cpu(torch, cfg, n: int = 16384) -> dict:
             raise AssertionError(f"field check: bad tensor {i} {tuple(a.shape)}")
         rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-12)
         worst[kind] = max(worst[kind], rel)
-    limits = {"outputs": 1e-4, "tables": 1e-2, "mlp": 1e-3}
+    limits = limits or {"outputs": 1e-4, "tables": 1e-2, "mlp": 1e-3}
     if any(worst[k] > limits[k] for k in worst):
         raise AssertionError(f"field on the card disagrees with the CPU: {worst}")
-    print("field_vs_cpu " + json.dumps(worst), flush=True)
+    print("field_vs_cpu " + json.dumps({"compute_dtype": str(cfg.field.compute_dtype), **worst}),
+          flush=True)
     return worst
 
 
@@ -1288,6 +1598,8 @@ def main() -> int:
     del testbed
     dyn = dynamic_phase(torch, st, cfg, hyper)
     camera = camera_phase(torch, st, cfg, hyper, prof["device_ms_per_step"])
+    lens = lens_phase(torch, st, cfg, hyper, prof, tb)
+    bf16 = bf16_phase(torch, st, cfg, hyper, tb, prof)
 
     def entry(name, replaces, rec, rec_f8, launches, extra=()):
         f8_keys = ("max_abs_err", "kernel_ms", "plain_ms", "bound_ms", "library_ms", *extra)
@@ -1306,6 +1618,7 @@ def main() -> int:
          "train_static_launches": train["launches"],
          "dynamic_launches": dyn["launches_by_phase"],
          "camera_launches": camera["launches"],
+         "lens_launches": lens["launches_all"], "bf16_launches": bf16["launches"],
          "resume_launches": {"native": snap["resume"]["launches_resumed"],
                              "reference": snap["reference"]["launches"]}},
     ] + [

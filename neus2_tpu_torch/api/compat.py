@@ -94,7 +94,8 @@ class NerfView:
 
     @property
     def render_with_camera_distortion(self) -> bool:
-        """Render through the learned distortion grid (reference
+        """Render through the dataset's Brown-Conrady lens and the learned
+        distortion grid; off renders a pinhole (reference
         m_nerf.render_with_camera_distortion)."""
         return self._tb.render_with_camera_distortion
 

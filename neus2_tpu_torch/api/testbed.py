@@ -21,8 +21,11 @@ codec), so a file either package writes loads into the other;
 render camera and ``render(width, height, spp, linear)``, and the output
 controls ``exposure`` and ``tonemap_curve``.  The learned camera group
 (``TrainState.cam``) trains with the canonical field when the config turns
-it on; renders use its envmap and distortion grid.  Multi-GPU is not ported
-yet and raises.
+it on; renders use its envmap and distortion grid.  The dataset's
+Brown-Conrady lens is carried into every render (FTheta, rolling shutter
+and ray files are per-training-image and are not), a mixed-size view
+renders at its true size, and ``image_dtype=torch.float16`` stores the
+training texels in fp16.  Multi-GPU is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -215,8 +218,12 @@ class Testbed:
     """NeuS2 training loop over static and dynamic scenes."""
 
     def __init__(self, config: TrainConfig | None = None, hyper: Hyperparams | None = None,
-                 seed: int = 0, device="cuda"):
+                 seed: int = 0, device="cuda", image_dtype: torch.dtype | None = None):
         self.device = resolve_device(device)
+        # Device storage of the training texels (None = fp32); torch.float16
+        # halves it at the reference's own texel precision (its images are
+        # __half4), cast to fp32 right after the gather (rays_from_pixels).
+        self.image_dtype = image_dtype
         self.config = config or TrainConfig()
         self.hyper = hyper or Hyperparams()
         self.seed = seed
@@ -264,8 +271,8 @@ class Testbed:
         # m_tonemap_curve, render_buffer.cu:313-332).
         self.exposure = 0.0
         self.tonemap_curve = "Identity"
-        # Renders through the learned distortion grid (reference
-        # m_nerf.render_with_camera_distortion).
+        # Renders through the dataset's lens and the learned distortion grid
+        # (reference m_nerf.render_with_camera_distortion).
         self.render_with_camera_distortion = True
         # Display knobs the reference's scripts set; kept, nothing reads them.
         self.color_space = "sRGB"
@@ -315,7 +322,8 @@ class Testbed:
         imgs = self.dataset.images
         if self._sharpen > 0.0:
             imgs = sharpen_images(np.asarray(imgs, np.float32), self._sharpen)
-        self.images = torch.as_tensor(imgs, device=self.device)
+        self.images = torch.as_tensor(imgs, dtype=self.image_dtype or torch.float32,
+                                      device=self.device)
 
     def _derive_config(self):
         """Dataset-dependent config: the scene box, occupancy cascades,
@@ -630,7 +638,7 @@ class Testbed:
         # In float64, so that _focal_for gives the view's fp32 focal back to
         # the bit at the view's own size (the JAX package's fp32 arctan2
         # moves it by an ulp, which moves every ray).
-        res = np.asarray(self.dataset.resolution, np.float64)
+        res = np.asarray(self._image_size(i), np.float64)
         f = self.cameras.focal[i].cpu().numpy().astype(np.float64)
         self._fov_deg = ("xy", tuple(float(v) for v in np.degrees(2.0 * np.arctan2(0.5 * res, f))))
         self._screen_center = tuple(float(v) for v in self.cameras.principal[i].cpu().numpy())
@@ -705,6 +713,21 @@ class Testbed:
                 f.write(" ".join(f"{v:.8f}" for v in acc["rotation"][i])
                         + f" {acc['transition'][i]:.8f}\n")
 
+    def _image_size(self, i: int) -> tuple[int, int]:
+        """Training view i's true (w, h)."""
+        if self.dataset.sizes is not None:
+            return tuple(int(v) for v in self.dataset.sizes[i])
+        return self.dataset.resolution
+
+    def render_cameras(self, cams=None):
+        """``cams`` (default: the training cameras) with the lens stripped
+        when ``render_with_camera_distortion`` is off (reference
+        m_nerf.render_with_camera_distortion)."""
+        cams = self.cameras if cams is None else cams
+        if not self.render_with_camera_distortion and cams.distortion is not None:
+            cams = cams._replace(distortion=None)
+        return cams
+
     def _render_extras(self) -> dict:
         """The learned extras of every render: the envmap behind the rays,
         the distortion grid on ray generation (unless
@@ -733,7 +756,7 @@ class Testbed:
           size over ``background_color`` -> one (H, W, 4) RGBA array
           (``linear`` turns the sRGB colour back into linear radiance);
         * ``render(i)`` / ``render(img_idx=i, ...)``: training view ``i`` at
-          its resolution -> (rgb (H, W, 3), depth (H, W), alpha (H, W)).
+          its true size -> (rgb (H, W, 3), depth (H, W), alpha (H, W)).
 
         Both draw their jitter from a generator seeded 7."""
         if len(args) >= 2:
@@ -747,13 +770,14 @@ class Testbed:
         cfg = render_cfg or self._default_render_cfg()
         params = self.state.ema_params if use_ema else self.state.params
         bg = self.background_color[:3] if background is None else background
-        cams = self.cameras
+        cams = self.render_cameras()
         with self.meters.scope("render"):
             rgb, depth, alpha = render_image(
                 params, self.effective_acc, self.state.occupancy, cams,
                 cams.poses[img_idx], cams.focal[img_idx], cams.principal[img_idx],
                 torch.Generator(device=self.device).manual_seed(7), cfg,
-                background=bg, spp=spp, mode=mode, **self._render_extras(),
+                background=bg, spp=spp, mode=mode, resolution=self._image_size(img_idx),
+                **self._render_extras(),
             )
         if linear:
             from neus2_tpu_torch.ops.losses import srgb_to_linear
@@ -767,7 +791,7 @@ class Testbed:
         """The pyngp render: the current camera, RGBA out."""
         cfg = render_cfg or self._default_render_cfg()
         params = self.state.ema_params if use_ema else self.state.params
-        cams = self.cameras
+        cams = self.render_cameras()
         pose = (cams.poses[0] if self._render_pose is None
                 else torch.as_tensor(self._render_pose, dtype=torch.float32, device=self.device))
         f32 = dict(dtype=torch.float32, device=self.device)

@@ -15,15 +15,21 @@ Host-side numpy, with the reference's behavior contract:
   * texels stored premultiplied-alpha linear RGBA;
   * per-frame ``depth_path`` images times ``integer_depth_scale`` times
     the scene scale, in ngp units (0 = no data); a json-root ``envmap``
-    image that seeds the learned envmap.
+    image that seeds the learned envmap;
+  * the lens at the json root: Brown-Conrady ``k1/k2/p1/p2``, or an FTheta
+    fisheye ``ftheta_p0..4`` + ``w/h`` (which wins); ``rolling_shutter``
+    with per-frame ``transform_matrix_start/_end``;
+  * per-pixel ray files ``rays_<stem>.dat`` beside the images;
+  * load-time unsharp-mask sharpening (json ``sharpen``);
+  * mixed image sizes, zero-padded to the largest with the true (w, h)
+    kept in ``sizes``.
 
 PNG/JPEG frames decode on the native thread pool (``native.py``, the repo's
 ``native/image_loader.cpp``), with Pillow for any file it cannot decode or
 wherever it cannot be built; depth maps and the envmap decode with Pillow
-(a 16-bit grey PNG stays uint16).  Lens distortion, FTheta, rolling
-shutter, per-pixel ray files, load-time sharpening, EXR frames and depth
-maps, and mixed resolutions are not ported yet: a JSON or scene that asks
-for one raises.
+(a 16-bit grey PNG stays uint16).  EXR frames, depth maps and envmaps go
+through the port's own codec (``data/exr.py``): linear, with no sRGB
+decode.
 """
 
 from __future__ import annotations
@@ -36,7 +42,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from neus2_tpu_torch.data.exr import read_exr_depth, read_exr_rgba
 from neus2_tpu_torch.engine.rays import Cameras
+from neus2_tpu_torch.ops.image import sharpen_images
 
 
 def _srgb_to_linear_np(c: np.ndarray) -> np.ndarray:
@@ -62,6 +70,20 @@ class NerfDataset:
     # (H, W, 4) premultiplied-linear RGBA from the json-root "envmap" image
     # (reference nerf_loader.cu:498-511).
     envmap: np.ndarray | None = None
+    # Brown-Conrady (k1, k2, p1, p2) from the json root (nerf_loader.cu:
+    # 397-425), and the FTheta polynomial [p0..p4, w, h] (448-457, which
+    # takes precedence: the reference assigns it last); None when absent.
+    distortion: np.ndarray | None = None
+    ftheta: np.ndarray | None = None
+    # Rolling shutter (t0, du, dv, motionblur) and the (N, 3, 4)
+    # end-of-exposure poses (nerf_loader.cu:434-445).
+    rolling_shutter: np.ndarray | None = None
+    poses_end: np.ndarray | None = None
+    # (N, H, W, 6) per-pixel rays [o | d] in ngp coordinates from
+    # "rays_<stem>.dat" (nerf_loader.cu:614-635).
+    rays: np.ndarray | None = None
+    # (N, 2) int32 true (w, h) when the sizes are mixed (nerf_loader.h:33-48).
+    sizes: np.ndarray | None = None
 
     @property
     def n_images(self) -> int:
@@ -71,12 +93,39 @@ class NerfDataset:
     def resolution(self) -> tuple[int, int]:
         return self.images.shape[2], self.images.shape[1]  # (W, H)
 
+    def subset(self, sl: slice | list[int]) -> NerfDataset:
+        """The dataset restricted to a slice or list of image indices.  The
+        rolling-shutter vector belongs to the whole dataset and is kept."""
+
+        def cut(a):
+            return None if a is None else a[sl]
+
+        return dataclasses.replace(
+            self, images=self.images[sl], poses=self.poses[sl], focal=self.focal[sl],
+            principal=self.principal[sl],
+            paths=tuple(np.asarray(self.paths, object)[sl]) if self.paths else (),
+            depths=cut(self.depths), poses_end=cut(self.poses_end), rays=cut(self.rays),
+            sizes=cut(self.sizes),
+        )
+
     def cameras(self, device="cpu") -> Cameras:
+        """The cameras on ``device``; the Brown-Conrady lens is dropped
+        under an FTheta one."""
+
+        def opt(a, dtype=torch.float32):
+            return None if a is None else torch.as_tensor(a, dtype=dtype, device=device)
+
         return Cameras(
-            poses=torch.as_tensor(self.poses, dtype=torch.float32, device=device),
-            focal=torch.as_tensor(self.focal, dtype=torch.float32, device=device),
-            principal=torch.as_tensor(self.principal, dtype=torch.float32, device=device),
+            poses=opt(self.poses),
+            focal=opt(self.focal),
+            principal=opt(self.principal),
             resolution=self.resolution,
+            distortion=opt(self.distortion) if self.ftheta is None else None,
+            ftheta=opt(self.ftheta),
+            poses_end=opt(self.poses_end),
+            rolling_shutter=opt(self.rolling_shutter),
+            rays=opt(self.rays),
+            image_sizes=opt(self.sizes, torch.int32),
         )
 
     def to_device(self, device) -> tuple[torch.Tensor, Cameras]:
@@ -137,9 +186,13 @@ def _read_image(path: Path) -> np.ndarray:
 
 
 def _load_image_rgba(path: Path) -> np.ndarray:
-    """Decode one PNG/JPEG -> (H, W, 4) float32 premultiplied-linear RGBA."""
+    """Decode one PNG/JPEG/EXR -> (H, W, 4) float32 premultiplied-linear
+    RGBA.  EXR data is linear already (the reference's tinyexr path,
+    nerf_loader.cu:499-510)."""
     if path.suffix.lower() == ".exr":
-        raise NotImplementedError(f"{path}: EXR frames are not ported yet")
+        img = read_exr_rgba(path)
+        rgb, alpha = img[..., :3], img[..., 3:4]
+        return np.concatenate([rgb * alpha, alpha], axis=-1).astype(np.float32)
     img = _read_image(path)
     if img.ndim == 2:
         img = img[..., None].repeat(3, axis=-1)
@@ -186,34 +239,8 @@ def _focal_from_json(frame: dict, meta: dict, w: int, h: int) -> tuple[float, fl
     raise ValueError("couldn't read fov: no fl_x/camera_angle_x/intrinsic_matrix")
 
 
-def _refuse_unported(meta: dict, frames: list, basepath: Path) -> None:
-    """Raise on a scene that asks for what this port does not read yet."""
-    asks = []
-    if any(float(meta.get(k, 0.0)) != 0.0 for k in ("k1", "k2", "p1", "p2")):
-        asks.append("lens distortion (k1/k2/p1/p2)")
-    if "ftheta_p0" in meta:
-        asks.append("FTheta lens")
-    if "rolling_shutter" in meta or any("transform_matrix_end" in f for f in frames):
-        asks.append("rolling shutter / end-of-exposure poses")
-    if float(meta.get("integer_depth_scale", -1.0)) > 0.0 and any(
-        Path(f.get("depth_path", "")).suffix.lower() == ".exr" for f in frames
-    ):
-        asks.append("EXR depth maps")
-    if float(meta.get("sharpen", 0.0)) > 0.0:
-        asks.append("load-time sharpening")
-    for f in frames:
-        stem = Path(f["file_path"]).stem
-        if (basepath / Path(f["file_path"]).parent / f"rays_{stem}.dat").exists():
-            asks.append("per-pixel ray files")
-            break
-    if asks:
-        raise NotImplementedError(
-            "this scene asks for " + ", ".join(asks) + ", which the port does not read yet"
-        )
-
-
 def load_dataset(json_path: str | os.PathLike, n_frames_cap: int | None = None) -> NerfDataset:
-    """Load one transforms.json (a static scene)."""
+    """Load one transforms.json (a static scene or one dynamic frame)."""
     json_path = Path(json_path)
     with open(json_path) as f:
         meta = json.load(f)
@@ -221,13 +248,24 @@ def load_dataset(json_path: str | os.PathLike, n_frames_cap: int | None = None) 
     frames = meta["frames"]
     if n_frames_cap is not None:
         frames = frames[:n_frames_cap]
-    _refuse_unported(meta, frames, basepath)
 
     from_na = "from_na" in meta
     scale = float(meta.get("scale", 0.33))
     offset = np.asarray(meta.get("offset", (0.5, 0.5, 0.5)), np.float32)
     if np.ndim(offset) == 0:
         offset = np.full((3,), float(offset), np.float32)
+    # Brown-Conrady when any of k1/k2/p1/p2 is nonzero (nerf_loader.cu:397-425).
+    dist = np.array([float(meta.get(k, 0.0)) for k in ("k1", "k2", "p1", "p2")], np.float32)
+    distortion = dist if np.any(dist != 0.0) else None
+    ftheta = None
+    if "ftheta_p0" in meta:
+        ftheta = np.array([float(meta[f"ftheta_p{i}"]) for i in range(5)]
+                          + [float(meta["w"]), float(meta["h"])], np.float32)
+    rolling_shutter = None
+    if "rolling_shutter" in meta:
+        rs = [float(v) for v in meta["rolling_shutter"]]
+        rolling_shutter = np.asarray((rs + [0.0])[:4], np.float32)
+    sharpen_amount = float(meta.get("sharpen", 0.0))
     # uint16 depth images scale by integer_depth_scale, then by the scene
     # scale (reference set_training_image, nerf_loader.cu:736).
     depth_scale = float(meta.get("integer_depth_scale", -1.0))
@@ -254,25 +292,52 @@ def load_dataset(json_path: str | os.PathLike, n_frames_cap: int | None = None) 
         for i, img in zip(native_idx, images):
             decoded[i] = img
 
-    images, poses, focals, principals, depth_list = [], [], [], [], []
+    images, poses, poses_end, focals, principals, depth_list, ray_list = ([] for _ in range(7))
+    any_end = False
     for frame, p, img in zip(frames, resolved, decoded):
-        images.append(img if img is not None else _load_image_rgba(p))
+        img = img if img is not None else _load_image_rgba(p)
+        if sharpen_amount > 0.0:  # nerf_loader.cu:364-365, 808-830
+            img = sharpen_images(img[None], sharpen_amount)[0]
+        images.append(img)
         mat = np.asarray(frame.get("transform_matrix_start", frame.get("transform_matrix")),
                          np.float32)
         poses.append(nerf_matrix_to_ngp(mat, scale, offset, from_na))
-        h, w = images[-1].shape[:2]
+        # The end-of-exposure pose defaults to the start (nerf_loader.cu:637-639).
+        any_end = any_end or "transform_matrix_end" in frame
+        end = np.asarray(frame.get("transform_matrix_end", mat), np.float32)
+        poses_end.append(nerf_matrix_to_ngp(end, scale, offset, from_na))
+        h, w = img.shape[:2]
         fx, fy, cx, cy = _focal_from_json(frame, meta, w, h)
         focals.append((fx, fy))
         principals.append((cx, cy))
         depth_list.append(_load_depth(basepath / frame["depth_path"], depth_scale * scale)
                           if depth_scale > 0.0 and "depth_path" in frame else None)
-    if len({im.shape[:2] for im in images}) != 1:
-        raise NotImplementedError("mixed image resolutions are not ported yet")
+        ray_list.append(_load_rays_file(p, (h, w), scale, offset))
+
+    shapes = {im.shape[:2] for im in images}
+    sizes = None
+    if len(shapes) != 1:
+        # Mixed sizes: zero-pad to the largest, keep each true (w, h).
+        sizes = np.asarray([(im.shape[1], im.shape[0]) for im in images], np.int32)
+        h_max, w_max = max(s[0] for s in shapes), max(s[1] for s in shapes)
+
+        def pad2(a):
+            return np.pad(a, ((0, h_max - a.shape[0]), (0, w_max - a.shape[1]))
+                          + ((0, 0),) * (a.ndim - 2))
+
+        images = [pad2(im) for im in images]
+        depth_list = [None if d is None else pad2(d) for d in depth_list]
+        ray_list = [None if r is None else pad2(r) for r in ray_list]
+    h, w = images[0].shape[:2]
     depths = None
     if any(d is not None for d in depth_list):
-        h, w = images[0].shape[:2]
         depths = np.stack([np.zeros((h, w), np.float32) if d is None else d
                            for d in depth_list])
+    rays = None
+    if any(r is not None for r in ray_list):
+        if any(r is None for r in ray_list):
+            raise ValueError("per-pixel ray files must be present for all frames or none")
+        rays = np.stack(ray_list)
     return NerfDataset(
         images=np.stack(images),
         poses=np.stack(poses),
@@ -285,15 +350,42 @@ def load_dataset(json_path: str | os.PathLike, n_frames_cap: int | None = None) 
         paths=tuple(str(p) for p in resolved),
         depths=depths,
         envmap=envmap,
+        distortion=distortion,
+        ftheta=ftheta,
+        rolling_shutter=rolling_shutter,
+        poses_end=np.stack(poses_end) if any_end or rolling_shutter is not None else None,
+        rays=rays,
+        sizes=sizes,
     )
+
+
+def _load_rays_file(img_path: Path, hw: tuple[int, int], scale: float,
+                    offset: np.ndarray) -> np.ndarray | None:
+    """"rays_<stem>.dat" beside an image -> (H, W, 6) ngp [o | d], or None.
+
+    H*W records of 6 float32 (origin, direction) in nerf coordinates,
+    converted as nerf_ray_to_ngp (nerf_loader.h:157-172): o * scale +
+    offset, then xyz <- yzx on both; the direction is not scaled."""
+    rp = img_path.parent / f"rays_{img_path.stem}.dat"
+    if not rp.exists():
+        return None
+    h, w = hw
+    raw = np.fromfile(rp, np.float32)
+    if raw.size < h * w * 6:
+        raise ValueError(f"{rp}: expected {h * w * 6} floats, got {raw.size}")
+    r = raw[: h * w * 6].reshape(h, w, 6).copy()
+    r[..., :3] = r[..., :3] * scale + np.asarray(offset, np.float32)
+    r[..., 0:3] = r[..., [1, 2, 0]]
+    r[..., 3:6] = r[..., [4, 5, 3]]
+    return r
 
 
 def _load_depth(path: Path, scale: float) -> np.ndarray:
     """A depth image -> (H, W) float32 in ngp units, 0 = missing: pixels
     times ``integer_depth_scale`` times the scene scale (the reference's
     copy_depth, nerf_loader.cu:91-98, 736); the first channel of a colour
-    image."""
-    d = _read_image(path)
+    image, the Z channel (else the first) of an EXR."""
+    d = read_exr_depth(path) if path.suffix.lower() == ".exr" else _read_image(path)
     if d.ndim == 3:
         d = d[..., 0]
     return (d.astype(np.float32) * scale).astype(np.float32)

@@ -57,6 +57,50 @@ def extract_mesh(params, config: FieldConfig, resolution: int = 256,
     return lo + (verts + 0.5) / resolution * (hi - lo), tris
 
 
+def save_density_grid_png(params, config: FieldConfig, path, resolution: int = 128,
+                          aabb: AABB | None = None) -> tuple[int, int]:
+    """Diagnostic mosaic PNG of the SDF grid over ``aabb`` (reference
+    marching_cubes.cu:962-1024, save_density_grid_to_png, with threshold 0,
+    range 1 and y as the slice axis): slices tiled about sqrt(Z) down, values
+    in [-1, +1] mapped to [0, 255] around 128, an 8-bit grey PNG written with
+    Pillow.  Returns the stats the reference logs: (surface voxels, lattice
+    points next to a zero crossing)."""
+    from PIL import Image
+
+    if aabb is None:
+        aabb = AABB((0.0, 0.0, 0.0), (1.0, 1.0, 1.0))
+    g = sdf_grid(params, config, aabb.lo, aabb.hi, aabb.lo, aabb.diag,
+                 resolution=resolution).cpu().numpy()
+    r = resolution
+    inside = g < 0.0
+    # Surface voxels: 2x2x2 corner blocks of mixed sign, anchored in
+    # [1, r - 2] on each axis as the reference loops.
+    c = sum(inside[dx:r - 1 + dx, dy:r - 1 + dy, dz:r - 1 + dz].astype(np.int32)
+            for dx in (0, 1) for dy in (0, 1) for dz in (0, 1))[1:, 1:, 1:]
+    n_voxels = int(np.count_nonzero((c > 0) & (c < 8)))
+    # Interior lattice points whose 6-neighbourhood crosses the threshold.
+    i = inside[1:-1, 1:-1, 1:-1]
+    near = np.zeros_like(i)
+    for sl in (np.s_[2:, 1:-1, 1:-1], np.s_[:-2, 1:-1, 1:-1], np.s_[1:-1, 2:, 1:-1],
+               np.s_[1:-1, :-2, 1:-1], np.s_[1:-1, 1:-1, 2:], np.s_[1:-1, 1:-1, :-2]):
+        near |= inside[sl] != i
+    n_near = int(np.count_nonzero(near))
+
+    # y is the slice axis (the reference's swap_y_z).
+    vol = np.transpose(g, (1, 2, 0))
+    z, h, w = vol.shape
+    ndown = int(np.sqrt(z))
+    nacross = -(-z // ndown)
+    sheet = np.zeros((h * ndown, w * nacross), np.uint8)
+    # clamp(v * 128 + 128.5, 0, 255), truncated (marching_cubes.cu:1019).
+    px = np.clip(vol * 128.0 + 128.5, 0, 255).astype(np.uint8)
+    for k in range(z):
+        row, col = divmod(k, nacross)
+        sheet[row * h:(row + 1) * h, col * w:(col + 1) * w] = px[k]
+    Image.fromarray(sheet).save(str(path), format="PNG")
+    return n_voxels, n_near
+
+
 def largest_component(verts: np.ndarray, tris: np.ndarray):
     """Keep only the largest connected component (by triangle count): drops
     floater blobs, the mask-free analog of the reference DTU protocol's

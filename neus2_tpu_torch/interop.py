@@ -16,6 +16,10 @@ package's types.
 the JAX package's native snapshot format (``pathdict-v1``): host arrays
 keyed by the strings JAX's ``tree_util.keystr`` gives the JAX state's
 leaves, so a snapshot either package writes loads into the other.
+
+``config_from_jax``, ``dataset_from_jax`` and ``cameras_from_jax`` carry
+the configs (``compute_dtype`` mapped by its name, bfloat16 to
+``torch.bfloat16``), a dataset and the cameras with every lens field.
 """
 
 from __future__ import annotations
@@ -27,11 +31,15 @@ from typing import Any
 import numpy as np
 import torch
 
+from neus2_tpu_torch.data.dataset import NerfDataset
 from neus2_tpu_torch.engine.error_map import ErrorMapState, init_error_map
 from neus2_tpu_torch.engine.occupancy import OccupancyGrid
-from neus2_tpu_torch.engine.train import TrainState, init_cam_params
+from neus2_tpu_torch.engine.rays import Cameras
+from neus2_tpu_torch.engine.train import TrainConfig, TrainState, init_cam_params
 from neus2_tpu_torch.models.delta import init_accumulated, init_delta
-from neus2_tpu_torch.utils.optim import plain_adam_init
+from neus2_tpu_torch.models.field import FieldConfig
+from neus2_tpu_torch.ops.hashgrid import HashGridConfig
+from neus2_tpu_torch.utils.optim import OptimConfig, plain_adam_init
 from neus2_tpu_torch.utils.tree import tree_map
 
 _PARAM_KEYS = ("hashgrid", "hashgrid_base", "sdf_mlp", "rgb_mlp", "variance")
@@ -310,6 +318,43 @@ def train_state_to_jax(state: TrainState, like):
         step=np.int32(state.step),
         frame_step=np.int32(state.frame_step),
     )
+
+
+_CONFIGS = {c.__name__: c for c in (TrainConfig, FieldConfig, HashGridConfig, OptimConfig)}
+
+
+def config_from_jax(cfg):
+    """The port's counterpart of a JAX ``TrainConfig`` / ``FieldConfig`` /
+    ``HashGridConfig`` / ``OptimConfig``, field by field; ``compute_dtype``
+    becomes the torch dtype of the same name (None stays None)."""
+    cls = _CONFIGS[type(cfg).__name__]
+    out = {}
+    for f in dataclasses.fields(cls):
+        v = getattr(cfg, f.name)
+        if f.name == "compute_dtype" and v is not None:
+            v = getattr(torch, np.dtype(v).name)
+        elif dataclasses.is_dataclass(v):
+            v = config_from_jax(v)
+        out[f.name] = v
+    return cls(**out)
+
+
+def dataset_from_jax(ds) -> NerfDataset:
+    """A port ``NerfDataset`` with a JAX one's fields (its numpy arrays)."""
+    return NerfDataset(**{f.name: getattr(ds, f.name) for f in dataclasses.fields(NerfDataset)})
+
+
+def cameras_from_jax(cams, device="cpu") -> Cameras:
+    """The port's ``Cameras`` from a JAX one (arrays or None a field)."""
+
+    def conv(name, v):
+        if v is None or name == "resolution":
+            return v
+        a = np.array(v)
+        return torch.as_tensor(a, dtype=torch.int32 if a.dtype.kind in "iu" else torch.float32,
+                               device=device)
+
+    return Cameras(**{k: conv(k, getattr(cams, k)) for k in Cameras._fields})
 
 
 _PHASE = ("current_training_time_frame", "train_canonical", "train_delta", "use_delta")

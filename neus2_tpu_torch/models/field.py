@@ -20,6 +20,7 @@ from neus2_tpu_torch.ops.hashgrid import HashGridConfig
 from neus2_tpu_torch.ops.hashgrid_fast import init_hashgrid_tables, make_encode_jac
 from neus2_tpu_torch.ops.neus_math import variance_to_inv_s
 from neus2_tpu_torch.ops.sh import sh_encode, sh_output_dim
+from neus2_tpu_torch.utils.device import round_operand
 from neus2_tpu_torch.utils.tree import tree_map
 
 Params = dict[str, Any]
@@ -47,6 +48,10 @@ class FieldConfig:
     # trained residual (reference DynamicGridEncoding, double_hash_grid.h:
     # 288, 2483-2514 set_base_grid).
     residual_grid: bool = False
+    # torch.bfloat16: the MLPs' products and the encoder's backward
+    # contractions take bf16-rounded operands with fp32 sums; the master
+    # params, the encoder's forward and the compositing stay fp32.
+    compute_dtype: Any = None
 
     @property
     def sdf_in_dim(self) -> int:
@@ -116,8 +121,8 @@ def _calibrate_sphere_init(sdf_mlp: Params, config: FieldConfig) -> Params:
 
 
 @functools.lru_cache(maxsize=None)
-def _encoder(grid_config: HashGridConfig):
-    return make_encode_jac(grid_config)
+def _encoder(grid_config: HashGridConfig, compute_dtype=None):
+    return make_encode_jac(grid_config, compute_dtype)
 
 
 def effective_grid_tables(params: Params) -> list[torch.Tensor]:
@@ -144,8 +149,9 @@ def freeze_grid_into_base(params: Params) -> Params:
 def sdf_fn(params: Params, x: torch.Tensor, config: FieldConfig,
            valid_level=None, max_level=None) -> tuple[torch.Tensor, torch.Tensor]:
     """(biased sdf (...,), raw SDF-MLP output (..., sdf_out_dim))."""
-    enc, _ = _encoder(config.grid)(effective_grid_tables(params), x, valid_level, max_level)
-    out = apply_mlp(params["sdf_mlp"], torch.cat([x, enc], -1))
+    enc, _ = _encoder(config.grid, config.compute_dtype)(effective_grid_tables(params), x,
+                                                         valid_level, max_level)
+    out = apply_mlp(params["sdf_mlp"], torch.cat([x, enc], -1), config.compute_dtype)
     return out[..., 0] + config.sdf_bias, out
 
 
@@ -159,19 +165,23 @@ def sdf_normal_features(params: Params, x: torch.Tensor, config: FieldConfig,
     at 0, as JAX's relu).  The normal is then an ordinary differentiable
     function of the weights and of the encoder's ``jac`` output, so plain
     autograd gives the eikonal's second-order path (the JAX package uses
-    forward-mode linearization)."""
-    enc, jac = _encoder(config.grid)(effective_grid_tables(params), x, valid_level,
-                                     max_level)
-    h = torch.cat([x, enc], -1)  # (N, in)
+    forward-mode linearization).  Under ``compute_dtype`` the tangents are
+    rounded where that linearization of the rounded MLP rounds them: at
+    the input and after each ReLU mask."""
+    dt = config.compute_dtype
+    enc, jac = _encoder(config.grid, dt)(effective_grid_tables(params), x, valid_level,
+                                         max_level)
+    h = round_operand(torch.cat([x, enc], -1), dt)  # (N, in)
     eye = torch.eye(3, dtype=x.dtype, device=x.device).expand(x.shape[0], 3, 3)
-    t = torch.cat([eye, jac], -1)  # (N, 3, in)
+    t = round_operand(torch.cat([eye, jac], -1), dt)  # (N, 3, in)
     layers = params["sdf_mlp"]["layers"]
     for i, layer in enumerate(layers):
-        pre = h @ layer["w"] + layer["b"]
-        t = t @ layer["w"]
+        w = round_operand(layer["w"], dt)
+        pre = h @ w + layer["b"]
+        t = t @ w
         if i < len(layers) - 1:
-            h = torch.relu(pre)
-            t = t * (pre > 0).to(t.dtype)[:, None, :]
+            h = round_operand(torch.relu(pre), dt)
+            t = round_operand(t * (pre > 0).to(t.dtype)[:, None, :], dt)
         else:
             h = pre
     return h[..., 0] + config.sdf_bias, t[..., 0], h
@@ -189,7 +199,8 @@ def rgb_fn(params: Params, features: torch.Tensor, x: torch.Tensor,
         if latent is None:
             latent = x.new_zeros(x.shape[:-1] + (config.latent_dim,))
         parts.append(latent)
-    return torch.sigmoid(apply_mlp(params["rgb_mlp"], torch.cat(parts, -1)))
+    return torch.sigmoid(apply_mlp(params["rgb_mlp"], torch.cat(parts, -1),
+                                   config.compute_dtype))
 
 
 def field_forward(params: Params, x: torch.Tensor, dir_warped: torch.Tensor,

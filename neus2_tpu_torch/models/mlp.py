@@ -14,6 +14,8 @@ from typing import Any
 
 import torch
 
+from neus2_tpu_torch.utils.device import round_operand
+
 Params = dict[str, Any]
 
 
@@ -40,14 +42,19 @@ def init_mlp(
     return {"layers": layers}
 
 
-def apply_mlp(params: Params, x: torch.Tensor) -> torch.Tensor:
-    """ReLU hidden layers, linear output, fp32."""
+def apply_mlp(params: Params, x: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """ReLU hidden layers, linear output, fp32 out.
+
+    ``dtype`` (bf16): the activations and weights of each product are
+    rounded to it, the products sum in fp32 and the bias adds in fp32; the
+    hidden activations are rounded again after the ReLU (the reference's
+    fp16 MLPs over fp32 master weights, trainer.h:79-88)."""
     layers = params["layers"]
-    h = x
+    h = round_operand(x, dtype)
     for i, layer in enumerate(layers):
-        h = h @ layer["w"] + layer["b"]
+        h = h @ round_operand(layer["w"], dtype) + layer["b"]
         if i < len(layers) - 1:
-            h = torch.relu(h)
+            h = round_operand(torch.relu(h), dtype)
     return h
 
 

@@ -13,6 +13,12 @@ per-corner (N*8, F) table updates; the JAX package's dense-level corner
 fusion and table rolls only worked around TPU gather limits.  The table
 gradient of all levels is one call to ``segment_dense_sum_multi`` (exact
 scatter on the CPU, the segment-sum kernel on the card).
+
+With ``compute_dtype`` (bf16) the backward's contractions take bf16-rounded
+operands with fp32 sums, and the table update is emitted in bf16 (the
+reference caches and contracts dy_dx in fp16, grid.h:372-1250; the kernel
+sums bf16 payloads either way); the forward's features and Jacobian stay
+fp32.
 """
 
 from __future__ import annotations
@@ -21,7 +27,7 @@ import torch
 
 from neus2_tpu_torch.ops.hashgrid import HashGridConfig, _corner_indices
 from neus2_tpu_torch.ops.scatter import segment_dense_sum_multi
-from neus2_tpu_torch.utils.device import constant
+from neus2_tpu_torch.utils.device import constant, round_operand
 
 # Corner offsets (8, 3): corner >> d & 1 per dimension, and the sign of each
 # trilinear factor's derivative.
@@ -82,11 +88,11 @@ def _level_gate(l, n_levels, valid_level, max_level, x):
 
 class _EncodeJac(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, config, x, valid_level, max_level, *tables):
+    def forward(ctx, config, compute_dtype, x, valid_level, max_level, *tables):
         L = config.n_levels
         resolutions, scales, _, sizes, use_hash = config.level_tables()
         corners = constant(_CORNERS, torch.int64, x.device)
-        want_dx = ctx.needs_input_grad[1]
+        want_dx = ctx.needs_input_grad[2]
         feats, jacs, residuals = [], [], []
         for l in range(L):
             pos = x * scales[l] + 0.5
@@ -105,6 +111,7 @@ class _EncodeJac(torch.autograd.Function):
             jacs.append((dw[..., None] * vals[:, :, None, :]).sum(1) * g3)
             residuals.append((idx, frac, gate, vals if want_dx else None))
         ctx.config = config
+        ctx.compute_dtype = compute_dtype
         ctx.residuals = residuals
         ctx.sizes = sizes
         ctx.scales = scales
@@ -113,33 +120,39 @@ class _EncodeJac(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct_feat, ct_jac):
         F = ctx.config.n_features_per_level
-        want_dx = ctx.needs_input_grad[1]
+        dt = ctx.compute_dtype
+        want_dx = ctx.needs_input_grad[2]
         # No table trains (the pose-refinement phase of a dynamic scene):
         # skip the table gradient, its sort and its segment-sum kernel.
-        want_tables = any(ctx.needs_input_grad[4:])
+        want_tables = any(ctx.needs_input_grad[5:])
         idx_list, upd_list = [], []
         d_x = 0.0
         for l, (idx, frac, gate, vals) in enumerate(ctx.residuals):
             scale = ctx.scales[l]
             w, dw, terms, signs = _weights_and_grads(frac, scale)
             g3 = gate if isinstance(gate, float) else gate[:, None, :]
-            ctf = ct_feat[:, l * F : (l + 1) * F] * gate  # (N, F)
-            ctj = ct_jac[:, :, l * F : (l + 1) * F] * g3  # (N, 3, F)
+            ctf = round_operand(ct_feat[:, l * F : (l + 1) * F] * gate, dt)  # (N, F)
+            ctj = round_operand(ct_jac[:, :, l * F : (l + 1) * F] * g3, dt)  # (N, 3, F)
+            dw_c = round_operand(dw, dt)
             if want_tables:
                 # d table from both the feat and the jac outputs (grid.h:372,
                 # 881).  These contractions are broadcast-multiply-sums, not
                 # einsums: an einsum becomes a cuBLAS batched product of N
                 # tiny matrices.
-                upd = w[..., None] * ctf[:, None, :] + (
-                    dw[..., None] * ctj[:, None, :, :]
-                ).sum(2)  # (N, 8, F)
+                first = round_operand(w, dt)[..., None] * ctf[:, None, :]
+                second = (dw_c[..., None] * ctj[:, None, :, :]).sum(2)  # (N, 8, F)
+                if dt is None:
+                    upd = first + second
+                else:  # the bf16 product, the fp32 sum rounded, a bf16 add
+                    upd = first.to(dt) + second.to(dt)
                 idx_list.append(idx.reshape(-1))
                 upd_list.append(upd.reshape(-1, F))
             if not want_dx:
                 continue
+            vals = round_operand(vals, dt)
             # d positions, first order through feat (grid.h:804) ...
             vc = (vals * ctf[:, None, :]).sum(-1)  # (N, 8)
-            d_x = d_x + (vc[..., None] * dw).sum(1)
+            d_x = d_x + (round_operand(vc, dt)[..., None] * dw_c).sum(1)
             # ... and second order through jac (grid.h:1010): d2w/dx_j dx_k
             # = sign_j sign_k * term_excl(j,k) * scale^2, 0 when j == k.
             vj = (vals[:, :, None, :] * ctj[:, None, :, :]).sum(-1)  # (N, 8, 3)
@@ -157,19 +170,46 @@ class _EncodeJac(torch.autograd.Function):
             d_tables = segment_dense_sum_multi(idx_list, upd_list, ctx.sizes)
         else:
             d_tables = [None] * len(ctx.sizes)
-        return (None, d_x if want_dx else None, None, None, *d_tables)
+        return (None, None, d_x if want_dx else None, None, None, *d_tables)
 
 
-def make_encode_jac(config: HashGridConfig):
+def make_encode_jac(config: HashGridConfig, compute_dtype: torch.dtype | None = None):
     """Returns encode_jac(tables, positions, valid_level, max_level) ->
     (feat (N, L*F), jac (N, 3, L*F)).
 
     ``valid_level``: int, levels above it output zeros.  ``max_level``:
     optional per-sample (N,) fraction in [0, 1]; level l is zeroed where
-    l >= max_level * L."""
+    l >= max_level * L.  ``compute_dtype``: the backward's operand dtype
+    (None = fp32)."""
 
     def encode_jac(tables, positions, valid_level=None, max_level=None):
         vl = 10**9 if valid_level is None else int(valid_level)
-        return _EncodeJac.apply(config, positions, vl, max_level, *tables)
+        return _EncodeJac.apply(config, compute_dtype, positions, vl, max_level, *tables)
 
     return encode_jac
+
+
+def encode_jac_reference(tables, positions: torch.Tensor, config: HashGridConfig,
+                         valid_level=None):
+    """Oracle: plain per-corner trilinear features (the JAX package's
+    ``hashgrid_encode``) and their Jacobian by autograd, one output column
+    at a time (slow) -> (feat (N, L*F), jac (N, 3, L*F))."""
+    resolutions, scales, _, sizes, use_hash = config.level_tables()
+    x = positions.detach().requires_grad_(True)
+    outs = []
+    for l in range(config.n_levels):
+        pos = x * scales[l] + 0.5
+        pos_floor = torch.floor(pos)
+        frac = pos - pos_floor
+        feat = 0.0
+        for corner in _CORNERS:
+            co = torch.tensor(corner, device=x.device)
+            w = torch.where(co == 1, frac, 1.0 - frac).prod(-1)
+            idx = _corner_indices(pos_floor.to(torch.int64) + co, resolutions[l], sizes[l],
+                                  use_hash[l])
+            feat = feat + w[:, None] * tables[l][idx]
+        outs.append(feat * (1.0 if valid_level is None or l <= valid_level else 0.0))
+    feat = torch.cat(outs, -1)
+    cols = [torch.autograd.grad(feat[:, k].sum(), x, retain_graph=True)[0]
+            for k in range(feat.shape[1])]
+    return feat.detach(), torch.stack(cols, -1)

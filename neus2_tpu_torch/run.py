@@ -21,9 +21,12 @@ format, so either package's CLI resumes from the other's.  A dynamic scene
 writes ``checkpoints/frame_{k}.msgpack`` (incremental: no optimizer state)
 and ``checkpoints/transform_{k}.txt`` (the accumulated rigid transform)
 when frame k finishes, and the transform for the last frame.  Runs on the
-card unless ``--device cpu`` is given.  Multi-GPU, the sdf and image modes
-and the mesh diagnostics (``--shaded_mesh``, ``--ref_mesh``,
-``--save_density_png``, ``--grid_stats``) are not ported yet.
+card unless ``--device cpu`` is given.  ``--fp16_images`` stores the
+training texels in fp16, ``--bf16`` runs the MLPs and the encoder's
+backward on bf16 operands with fp32 sums, and ``--save_density_png``
+writes the SDF grid's slice mosaic.  Multi-GPU, the sdf and image modes and
+the other mesh diagnostics (``--shaded_mesh``, ``--ref_mesh``,
+``--grid_stats``) are not ported yet.
 """
 
 from __future__ import annotations
@@ -54,6 +57,11 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--n_rays", type=int, default=None)
     p.add_argument("--samples_per_ray", type=int, default=None)
+    p.add_argument("--bf16", action="store_true",
+                   help="bf16 operands for the MLPs and the encoder's backward "
+                        "(fp32 sums and master params)")
+    p.add_argument("--fp16_images", action="store_true",
+                   help="store the training images in fp16 (half the device memory)")
     p.add_argument("--depth_supervision_lambda", type=float, default=None,
                    help="L2 depth-supervision weight; depth maps load from per-frame "
                         "depth_path + integer_depth_scale")
@@ -61,6 +69,9 @@ def parse_args(argv=None):
     p.add_argument("--dynamic_save_mesh", action="store_true",
                    help="dynamic scenes: export the canonical mesh when each frame finishes")
     p.add_argument("--mesh_resolution", type=int, default=256)
+    p.add_argument("--save_density_png", action="store_true",
+                   help="save a slice mosaic PNG of the SDF grid "
+                        "(reference save_density_grid_to_png)")
     p.add_argument("--test_transforms", default=None,
                    help="held-out transforms json for PSNR/SSIM eval")
     p.add_argument("--eval_per_frame", action="store_true",
@@ -120,6 +131,8 @@ def main(argv=None):
         changes["samples_per_ray"] = args.samples_per_ray
     if args.depth_supervision_lambda is not None:
         changes["depth_supervision_lambda"] = args.depth_supervision_lambda
+    if args.bf16:
+        changes["field"] = dataclasses.replace(config.field, compute_dtype=torch.bfloat16)
     if changes:
         config = dataclasses.replace(config, **changes)
     if args.n_steps:
@@ -127,7 +140,8 @@ def main(argv=None):
     if args.next_frame_steps:
         hyper.next_frame_max_training_step = args.next_frame_steps
 
-    tb = Testbed(config=config, hyper=hyper, seed=args.seed, device=args.device)
+    tb = Testbed(config=config, hyper=hyper, seed=args.seed, device=args.device,
+                 image_dtype=torch.float16 if args.fp16_images else None)
     log(f"loading scene {args.scene}")
     try:
         tb.load_training_data(args.scene)
@@ -152,6 +166,17 @@ def main(argv=None):
         verts, tris = tb.compute_and_save_marching_cubes_mesh(
             mesh_path, resolution=args.mesh_resolution)
         log(f"mesh: {len(verts)} vertices, {len(tris)} triangles")
+
+    if args.save_density_png:
+        from neus2_tpu_torch.engine.mesh import save_density_grid_png
+        from neus2_tpu_torch.ops.warp import scene_aabb
+
+        png_path = out / "mesh" / "density_grid.png"
+        nvox, nnear = save_density_grid_png(
+            tb.state.ema_params, tb.config.field, png_path,
+            resolution=min(args.mesh_resolution, 128), aabb=scene_aabb(tb.config.aabb_scale))
+        log(f"density grid png -> {png_path} "
+            f"({nvox} surface voxels, {nnear} near-crossing lattice points)")
 
     if args.render_path:
         log(f"rendering {args.render_n_frames} frames along {args.render_path}")
@@ -237,7 +262,7 @@ def screenshot(tb, transforms: str, out_dir: Path, spp: int, frames, log):
     from neus2_tpu_torch.engine.render import render_image
 
     ds = load_dataset(transforms)
-    cams = ds.cameras(tb.device)
+    cams = tb.render_cameras(ds.cameras(tb.device))
     cfg = _eval_render_config(tb)
     out_dir.mkdir(parents=True, exist_ok=True)
     for i in (frames if frames else range(ds.n_images)):
@@ -294,15 +319,16 @@ def _make_per_frame_eval(log):
     def hook(tb, frame_idx):
         cfg = RenderConfig(field=tb.config.field, aabb_scale=tb.config.aabb_scale,
                            samples_per_ray=64, n_candidates=192)
-        cams = tb.cameras
+        cams = tb.render_cameras()
+        w, h = tb._image_size(0)
         rgb, _, _ = render_image(
             tb.state.ema_params, tb.effective_acc, tb.state.occupancy, cams,
             cams.poses[0], cams.focal[0], cams.principal[0],
             torch.Generator(device=tb.device).manual_seed(0), cfg, background=0.0, spp=1,
-            **tb._render_extras(),
+            resolution=(w, h), **tb._render_extras(),
         )
-        log(f"frame {frame_idx} view-0 PSNR: "
-            f"{float(psnr(rgb, srgb_eval_target(tb.images[0]))):.2f} dB")
+        target = srgb_eval_target(tb.images[0, :h, :w].float())
+        log(f"frame {frame_idx} view-0 PSNR: {float(psnr(rgb, target)):.2f} dB")
 
     return hook
 
@@ -311,24 +337,30 @@ def evaluate(tb, test_transforms: str, spp: int, log, save_dir: Path | None = No
              ) -> tuple[list, list]:
     """PSNR / SSIM on held-out views (reference run.py:251-344 protocol:
     black background, ``spp`` jittered passes, min transmittance 1e-4,
-    sRGB space).  ``save_dir``: each view's render | GT | 4 |render - GT|
-    as ``view_{i:03d}.png`` (the reference's cal_psnr image dumps)."""
+    sRGB space), through the views' lens unless the Testbed's
+    ``render_with_camera_distortion`` is off.  A view of a mixed-size set
+    renders at its true size and is scored on its true pixels only, not on
+    the loader's zero padding.  ``save_dir``: each view's render | GT | 4
+    |render - GT| as ``view_{i:03d}.png`` (the reference's cal_psnr image
+    dumps)."""
     from neus2_tpu_torch.data.dataset import load_dataset
     from neus2_tpu_torch.engine.render import render_image
     from neus2_tpu_torch.ops.image import psnr, srgb_eval_target, ssim
 
     ds = load_dataset(test_transforms)
     images, cams = ds.to_device(tb.device)
+    cams = tb.render_cameras(cams)
     cfg = _eval_render_config(tb)
     psnrs, ssims = [], []
     for i in range(ds.n_images):
+        w_i, h_i = (int(v) for v in ds.sizes[i]) if ds.sizes is not None else ds.resolution
         rgb, _, _ = render_image(
             tb.state.ema_params, tb.effective_acc, tb.state.occupancy, cams,
             cams.poses[i], cams.focal[i], cams.principal[i],
             torch.Generator(device=tb.device).manual_seed(i), cfg,
-            background=0.0, spp=spp, **tb._render_extras(),
+            background=0.0, spp=spp, resolution=(w_i, h_i), **tb._render_extras(),
         )
-        target = srgb_eval_target(images[i])
+        target = srgb_eval_target(images[i][:h_i, :w_i])
         p, s = float(psnr(rgb, target)), float(ssim(rgb, target))
         psnrs.append(p)
         ssims.append(s)

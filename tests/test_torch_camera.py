@@ -400,9 +400,9 @@ def test_dataset_envmap_loading(tmp_path):
 
 
 def test_loader_reads_depth(tmp_path):
-    """tests/test_distortion_depth.py:124 without the lens model (not ported
-    yet): uint16 depth times integer_depth_scale times the scene scale, as
-    the JAX loader reads it."""
+    """tests/test_distortion_depth.py:124 without the lens model (the lens
+    is tests/test_torch_loader_extras.py's): uint16 depth times
+    integer_depth_scale times the scene scale, as the JAX loader reads it."""
     path = write_depth_scene(tmp_path, with_depth=True, with_distortion=False)
     ds, ref = load_dataset(path), jax_load_dataset(path)
     assert ds.depths.shape == (2, 32, 32) and ds.depths.dtype == np.float32
@@ -441,28 +441,6 @@ def test_depth_supervision_reachable_from_testbed_and_cli(tmp_path):
     assert tb.config.depth_supervision_lambda == 0.5 and tb.depths is not None
     assert len(seen) == 3 and all(d is tb.depths for d in seen)
     assert np.isfinite(tb.loss_scalar)
-
-
-@pytest.mark.parametrize("ask", ["exr_depth", "k1", "ftheta", "rolling_shutter", "sharpen",
-                                 "rays_file"])
-def test_unported_loader_inputs_still_raise(tmp_path, ask):
-    path = write_depth_scene(tmp_path, with_depth=True, with_distortion=False)
-    meta = json.loads(path.read_text())
-    if ask == "exr_depth":
-        meta["frames"][0]["depth_path"] = "d0.exr"
-    elif ask == "k1":
-        meta["k1"] = -0.1
-    elif ask == "ftheta":
-        meta["ftheta_p0"] = 1.0
-    elif ask == "rolling_shutter":
-        meta["rolling_shutter"] = [0.0, 0.0, 0.1]
-    elif ask == "sharpen":
-        meta["sharpen"] = 0.5
-    else:
-        (tmp_path / "rays_im0.dat").write_bytes(b"\0" * 16)
-    path.write_text(json.dumps(meta))
-    with pytest.raises(NotImplementedError):
-        load_dataset(path)
 
 
 # -- snapshots --------------------------------------------------------------------

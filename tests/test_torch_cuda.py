@@ -4,7 +4,10 @@ card against the CPU, one training step on the card against the same step
 on the CPU, a dynamic step in each phase (pose refinement, finetune) and
 the residual grid's freeze on the card against the CPU, the error
 map's deposit, rebuild and sampling on the card against the CPU and its
-deposit against itself, and a native snapshot's round trip on the card.
+deposit against itself, a native snapshot's round trip on the card, the
+rays of every camera model and the fp16 texel gather on the card against
+the CPU, and bf16 compute (the encoder's backward, the MLP) on the card
+against the CPU's bf16 path.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports neither JAX nor the JAX package, so it runs where they are absent;
@@ -684,3 +687,98 @@ def test_render_image_with_extras_on_card_matches_cpu(cuda):
     for a, b in zip(run(cuda), run("cpu")):
         assert a.shape == b.shape and torch.isfinite(a).all()
         assert float((a - b).abs().max()) <= 3e-4
+
+
+def _lens_cameras(model: str):
+    """3 views at 40 x 30 (max) with ``model``'s lens fields (the camera
+    models of tests/test_torch_loader_extras.py, made here without JAX)."""
+    from neus2_tpu_torch.engine import rays
+
+    g = torch.Generator().manual_seed(1)
+    poses = torch.eye(4)[:3].repeat(3, 1, 1)
+    poses[:, :, :3] += 0.05 * torch.randn((3, 3, 3), generator=g)
+    poses[:, :, 3] = torch.rand((3, 3), generator=g) * 0.4 - 0.2
+    kw = {}
+    if model == "brown_conrady":
+        kw["distortion"] = torch.tensor([-0.12, 0.03, 0.004, -0.002])
+    elif model == "ftheta":
+        kw["ftheta"] = torch.tensor([0.0, 5e-3, 0, 0, 0, 800.0, 600.0])
+    elif model == "rolling_shutter":
+        kw.update(poses_end=poses + 0.1 * torch.randn((3, 3, 4), generator=g),
+                  rolling_shutter=torch.tensor([0.1, 0.2, 0.5, 0.0]))
+    elif model == "mixed_sizes":
+        kw.update(image_sizes=torch.tensor([[40, 30], [24, 30], [40, 12]], dtype=torch.int32),
+                  distortion=torch.tensor([-0.12, 0.03, 0.004, -0.002]))
+    elif model == "rays":
+        d = torch.randn((3, 30, 40, 3), generator=g)
+        kw["rays"] = torch.cat([torch.rand((3, 30, 40, 3), generator=g), d], -1)
+    return rays.Cameras(poses=poses, focal=torch.rand((3, 2), generator=g) * 20 + 30,
+                        principal=torch.rand((3, 2), generator=g) * 0.2 + 0.4,
+                        resolution=(40, 30), **kw)
+
+
+@pytest.mark.parametrize("model", ["pinhole", "brown_conrady", "ftheta", "rolling_shutter",
+                                   "mixed_sizes", "rays"])
+def test_lens_rays_on_card_match_cpu(cuda, model):
+    """pixel_to_ray and rays_from_pixels of every camera model on the card
+    against the CPU: rays within 1e-5 (the card's sin, cos, sqrt and
+    division round differently), the FTheta sentinel on the same pixels,
+    the texels bitwise, from fp32 and from fp16 storage."""
+    from neus2_tpu_torch.engine import rays
+
+    cams = _lens_cameras(model)
+    g = torch.Generator().manual_seed(2)
+    idx = torch.randint(0, 3, (4096,), generator=g)
+    uv = torch.rand((4096, 2), generator=g)
+    images = torch.rand((3, 30, 40, 4), generator=g)
+    c_cams = _to(cams, cuda)
+    for a, b in zip(rays.pixel_to_ray(c_cams, idx.to(cuda), uv.to(cuda)),
+                    rays.pixel_to_ray(cams, idx, uv)):
+        assert torch.isfinite(a).all() and float((a.cpu() - b).abs().max()) <= 1e-5
+    for dtype in (torch.float32, torch.float16):
+        im = images.to(dtype)
+        got = rays.rays_from_pixels(c_cams, im.to(cuda), idx.to(cuda), uv.to(cuda))
+        ref = rays.rays_from_pixels(cams, im, idx, uv)
+        assert got[2].dtype == torch.float32 and torch.equal(got[2].cpu(), ref[2])
+        assert torch.equal(got[3].cpu(), ref[3])
+        for a, b in zip(got[:2], ref[:2]):
+            assert float((a.cpu() - b).abs().max()) <= 1e-5
+
+
+def test_bf16_encoder_and_mlp_on_card_match_cpu(cuda):
+    """bf16 compute on the card against the CPU's bf16 path on the same
+    inputs: the encoder's table and position gradients (kernel 1 on the
+    card) within 1e-2 of their max (a bf16 rounding that the card's
+    summation order flips), ``apply_mlp``'s output within 1e-4 of its max
+    and its gradients within 1e-2."""
+    from neus2_tpu_torch.models.mlp import apply_mlp, init_mlp
+    from neus2_tpu_torch.ops.hashgrid import HashGridConfig
+    from neus2_tpu_torch.ops.hashgrid_fast import init_hashgrid_tables, make_encode_jac
+
+    grid = HashGridConfig(n_levels=6, log2_hashmap_size=14, per_level_scale=1.5)
+    g = torch.Generator().manual_seed(0)
+    tables = [t * 1e4 for t in init_hashgrid_tables(g, grid)]
+    x = torch.rand((8192, 3), generator=g)
+    mlp = init_mlp(g, 19, 64, 2, 16)
+    h = torch.randn((8192, 19), generator=g)
+    coef = torch.randn((8192, 16), generator=g)
+
+    def run(device):
+        tb = [t.to(device).requires_grad_(True) for t in tables]
+        xx = x.to(device).requires_grad_(True)
+        feat, jac = make_encode_jac(grid, torch.bfloat16)(tb, xx)
+        enc = torch.autograd.grad((feat**2).sum() + (jac**2).sum(), [*tb, xx])
+        p = _to(mlp, device)
+        leaves = [t.requires_grad_(True) for t in tree_leaves(p)]
+        hh = h.to(device).requires_grad_(True)
+        out = apply_mlp(p, hh, torch.bfloat16)
+        grads = torch.autograd.grad((out * coef.to(device)).sum(), [*leaves, hh])
+        return [t.detach().cpu() for t in enc], out.detach().cpu(), [t.cpu() for t in grads]
+
+    before = segment_tile.segment_sum_rows.launches
+    card, cpu = run(cuda), run("cpu")
+    assert segment_tile.segment_sum_rows.launches == before + 1
+    for a, b in zip(card[0] + card[2], cpu[0] + cpu[2]):
+        assert torch.isfinite(a).all()
+        assert float((a - b).abs().max()) <= 1e-2 * float(b.abs().max())
+    assert float((card[1] - cpu[1]).abs().max()) <= 1e-4 * float(cpu[1].abs().max())

@@ -271,17 +271,6 @@ def test_decoder_build_failure_is_remembered(monkeypatch, capsys):
     assert err.count("native image decoder unavailable") == 1 and "png.h" in err
 
 
-def test_unported_scene_options_raise(exported_scene, tmp_path):
-    meta = json.loads(Path(exported_scene).read_text())
-    meta["k1"] = 0.1
-    for f in meta["frames"]:
-        f["file_path"] = str(Path(exported_scene).parent / f["file_path"])
-    bad = tmp_path / "distorted.json"
-    bad.write_text(json.dumps(meta))
-    with pytest.raises(NotImplementedError):
-        load_dataset(bad)
-
-
 @pytest.mark.parametrize("from_na", [True, False])
 def test_pose_conversions_match_jax(from_na):
     from neus2_tpu.data import dataset as jds
