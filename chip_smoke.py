@@ -23,6 +23,10 @@ runs them, with the launch counts set to 0 just before and read just after:
     runs it: load the scene, ``while tb.frame()``, render two held-out
     views at the eval protocol and score PSNR / SSIM, export the
     marching-cubes mesh;
+  * ``mesh_outputs_phase``: on the Testbed phase's trained state, its mesh
+    rasterized from a held-out view (``render_mesh_image``, normal map and
+    shaded), the Chamfer distance to the true sphere's mesh on the card,
+    ``refine_vertices`` and the hash grid's level stats;
   * ``snapshot_phase``: on that trained Testbed, a native snapshot saved,
     loaded into a fresh Testbed (every leaf and a render bitwise) and
     resumed for 20 steps (kernel 1 once a step, losses bitwise the
@@ -46,7 +50,17 @@ runs them, with the launch counts set to 0 just before and read just after:
     of a rolling-shutter, an FTheta and a per-pixel ray-file scene;
   * ``bf16_phase``: the Testbed phase's run with bf16 compute, after a
     check that the bf16 field on the card agrees with the CPU's: kernel 1
-    once a step and the held-out PSNR beside the fp32 run's.
+    once a step and the held-out PSNR beside the fp32 run's;
+  * ``sdf_phase``: ``--mode sdf`` through the CLI at full width
+    (``default_sdf_field``, batch 2^16, pool 2^21) on the CSG scene's mesh
+    for 2,000 steps: kernel 1 once a step (held first against its plain
+    version at the mode's shape, and one step on the card against the
+    CPU), the IoU, the sphere-traced render and the mesh;
+  * ``image_phase``: ``--mode image`` through the CLI at
+    ``Image2DConfig``'s defaults on a 512^2 PNG for 1,000 steps: kernel 4
+    once a level a step (held first against its plain version at each
+    level's shape, and one step's table gradients on the card against the
+    CPU), the PSNR.
 
 Exits non-zero on any failure; the last line of a successful run is the
 device JSON, the line before it the ``kernels`` JSON.
@@ -109,6 +123,15 @@ BF16_PSNR_MARGIN = 0.3  # dB, tests/test_train_e2e.py::test_bf16_compute_quality
 BF16_FIELD_LIMITS = {"outputs": 1e-3, "tables": 1e-2, "mlp": 2e-3}
 EVAL_SPP = 8
 MESH_RES = 256
+SDF_STEPS = 2000  # --mode sdf's default
+SDF_MESH_RES = 128  # sdf_phase's mesh: csg_sdf on this lattice, marching cubes
+SDF_PROFILE_AT = 1000  # host window, then the traced window, from this step
+SDF_IOU_BAR = 0.9  # tests/test_sdf_mode.py::test_fit_converges_iou
+IMAGE_STEPS = 1000  # --mode image's default
+IMAGE_RES = 512
+IMAGE_PROFILE_AT = 500
+IMAGE_PSNR_BAR = 26.0  # tests/test_image_mode.py::test_image_fit_converges
+REFINE_ITERS = 5  # mesh_outputs_phase's refine_vertices
 # The batched layouts' index padding past each level's M updates, as the
 # JAX package pads them (round_up(M, 128) + 2 * chunk).
 STREAM_PAD = 4096
@@ -193,10 +216,13 @@ def segment_sum_inputs(torch, sizes, use_hash, m, f, seed):
     return idx, upd
 
 
-def kernel_phase(torch, st, cfg, f: int) -> dict:
-    """Segment-sum kernel vs its plain version at the main path's shapes."""
+def kernel_phase(torch, st, cfg, f: int, m: int | None = None,
+                 label: str = "kernel_phase") -> dict:
+    """Segment-sum kernel vs its plain version at the main path's shapes:
+    ``cfg.field.grid``'s levels and ``m`` updates a level (default: the
+    NeuS step's samples x 8 corners)."""
     _, _, _, sizes, use_hash = cfg.field.grid.level_tables()
-    m = cfg.n_rays * cfg.samples_per_ray * 8  # samples x corners per level
+    m = m or cfg.n_rays * cfg.samples_per_ray * 8  # samples x corners per level
     idx, upd = segment_sum_inputs(torch, sizes, use_hash, m, f, seed=f)
     err = max_level_err(torch, "segment_sum_rows", st.segment_sum_all_levels(idx, upd, sizes),
                         st.segment_sum_all_levels(idx, upd, sizes),
@@ -226,7 +252,7 @@ def kernel_phase(torch, st, cfg, f: int) -> dict:
         "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "bytes": bytes_moved,
     }
-    print("kernel_phase " + json.dumps(out), flush=True)
+    print(f"{label} " + json.dumps(out), flush=True)
     return out
 
 
@@ -1384,6 +1410,447 @@ def bf16_phase(torch, st, cfg, hyper, testbed: dict, static: dict) -> dict:
     return out
 
 
+
+class Patched:
+    """``module.name`` replaced by ``wrap(original)`` inside a with block:
+    how a phase watches a step or a host call of a path it drives through
+    the CLI."""
+
+    def __init__(self, module, name: str, wrap):
+        self.module, self.name, self.wrap = module, name, wrap
+
+    def __enter__(self):
+        self.original = getattr(self.module, self.name)
+        setattr(self.module, self.name, self.wrap(self.original))
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.original)
+
+
+def host_timer(torch, sink: list):
+    """A wrapper that appends each call's seconds (the card synchronized
+    before and after) to ``sink``."""
+    def wrap(fn):
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            sink.append(time.perf_counter() - t0)
+            return out
+        return timed
+    return wrap
+
+
+class FitRecorder:
+    """A fit mode's step wrapped for one run (the step returns (params,
+    opt_state, loss)): each step's loss kept (no host sync), and from step
+    ``profile_at`` host ms a step over PROFILE_WINDOW steps, then device
+    ms, device launches and the top kernels a step over as many traced with
+    ``torch.profiler``."""
+
+    def __init__(self, torch, profile_at: int):
+        self.torch, self.profile_at = torch, profile_at
+        self.losses, self.out, self.prof, self.steps = [], {}, None, 0
+
+    def __call__(self, fn):
+        from torch.profiler import ProfilerActivity, profile
+
+        torch = self.torch
+
+        def step(*args, **kw):
+            if self.steps == self.profile_at:
+                torch.cuda.synchronize()
+                self.t0 = time.perf_counter()
+            if self.steps == self.profile_at + PROFILE_WINDOW:
+                torch.cuda.synchronize()
+                self.out["host_ms_per_step"] = ((time.perf_counter() - self.t0) * 1e3
+                                                / PROFILE_WINDOW)
+                self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                self.prof.start()
+            out = fn(*args, **kw)
+            self.losses.append(out[2])
+            self.steps += 1
+            if self.prof is not None and self.steps == self.profile_at + 2 * PROFILE_WINDOW:
+                torch.cuda.synchronize()
+                self.prof.stop()
+                evs = device_events(self.prof)
+                self.out["device_ms_per_step"] = device_ms_per_step(self.prof, PROFILE_WINDOW)
+                self.out["device_launches_per_step"] = sum(e.count for e in evs) / PROFILE_WINDOW
+                self.out["top_device"] = [{"name": e.key[:60], "ms_per_step":
+                                           e.self_device_time_total / 1e3 / PROFILE_WINDOW}
+                                          for e in evs[:8]]
+                self.prof = None
+            return out
+
+        return step
+
+    def loss_curve(self, what: str) -> list:
+        """Every loss as a float; fails unless all are finite and the last
+        16 steps' mean is below the first 16's."""
+        losses = self.torch.stack(self.losses).float().cpu().tolist()
+        if not all(v == v and abs(v) < 1e30 for v in losses):
+            raise AssertionError(f"{what}: non-finite losses")
+        first, last = sum(losses[:16]) / 16, sum(losses[-16:]) / 16
+        if not last < first:
+            raise AssertionError(f"{what}: the loss did not fall: {first} -> {last}")
+        return losses
+
+
+def grads_agree(torch, card, cpu, n_tables: int, limits: tuple, what: str) -> dict:
+    """Gradient trees (tables first) from the card and the CPU: the worst
+    |diff| / max|cpu| of the tables and of the rest, each within its limit."""
+    from neus2_tpu_torch.utils.tree import tree_leaves
+
+    worst = {"tables": 0.0, "mlp": 0.0}
+    for i, (a, b) in enumerate(zip(tree_leaves(card), tree_leaves(cpu))):
+        a = a.cpu()
+        if a.shape != b.shape or not torch.isfinite(a).all():
+            raise AssertionError(f"{what}: bad gradient {i} {tuple(a.shape)}")
+        kind = "tables" if i < n_tables else "mlp"
+        worst[kind] = max(worst[kind],
+                          float((a - b).abs().max()) / max(float(b.abs().max()), 1e-12))
+    if worst["tables"] > limits[0] or worst["mlp"] > limits[1]:
+        raise AssertionError(f"{what}: the card disagrees with the CPU: {worst}")
+    return worst
+
+
+def write_csg_mesh(path: Path, res: int) -> int:
+    """``csg_sdf`` on a res^3 lattice of cell centres of the unit cube,
+    through the port's marching cubes, normalized and written as an OBJ;
+    returns its triangle count."""
+    import numpy as np
+
+    from neus2_tpu_torch.data.synthetic import csg_sdf
+    from neus2_tpu_torch.engine.mesh import save_mesh_obj
+    from neus2_tpu_torch.engine.sdf_mode import normalize_mesh
+    from neus2_tpu_torch.native import marching_cubes
+
+    xs = (np.arange(res, dtype=np.float32) + 0.5) / res
+    grid = np.stack(np.meshgrid(xs, xs, xs, indexing="ij"), axis=-1)
+    verts, tris = marching_cubes(csg_sdf(grid).astype(np.float32))
+    verts, _, _ = normalize_mesh(((verts + 0.5) / res).astype(np.float32))
+    save_mesh_obj(path, verts, tris)
+    return int(len(tris))
+
+
+def sdf_phase(torch, st) -> dict:
+    """The SDF-from-mesh mode at full width (``default_sdf_field``: 14 x 2
+    levels, 2^19 rows, SDF MLP 64 x 2; batch 2^16, pool 2^21), as a user
+    runs it: ``run.main(["--mode", "sdf", ...])`` on the CSG scene's mesh
+    for 2,000 steps with ``--save_mesh``.
+
+    Before it: kernel 1 against its plain version at the mode's shape
+    (2^16 points x 8 corners a level), and one step's loss and gradients
+    on the card against the CPU on the same params and batch (loss rtol
+    1e-4, tables within 1e-2 of their max: bf16-quantized sums on the
+    card; the MLP within 1e-3).  Then the run, with the counts set to 0
+    just before: the BVH build and pool host seconds, the losses, host and
+    device ms a step over windows from step SDF_PROFILE_AT, the 512^2
+    render's ms, the mesh.  Fails unless kernel 1 ran once a step and no
+    other kernel ran, the loss fell, the IoU on 200k points beats
+    SDF_IOU_BAR and the mean |sdf| at surface points is below 0.01."""
+    import numpy as np
+
+    from neus2_tpu_torch import run
+    from neus2_tpu_torch.data.synthetic import csg_sdf
+    from neus2_tpu_torch.engine import sdf_mode
+    from neus2_tpu_torch.utils.tree import tree_map
+
+    cfg = sdf_mode.SdfFitConfig()
+    kernel = kernel_phase(torch, st, cfg, 2, m=cfg.batch_size * 8, label="sdf_kernel_phase")
+
+    params, _ = sdf_mode.init_sdf_fit(cfg, seed=0, device="cpu")
+    g = torch.Generator().manual_seed(4)
+    pts = torch.rand((cfg.batch_size, 3), generator=g)
+    target = torch.from_numpy(csg_sdf(pts.numpy()).astype(np.float32))
+
+    def grads(device):
+        x, y = pts.to(device), target.to(device)
+        return sdf_mode.value_and_grads(
+            lambda p: sdf_mode.fit_loss(sdf_mode.sdf_fn(p, x, cfg.field)[0], y, cfg.loss),
+            tree_map(lambda t: t.to(device), params))
+
+    launches = segment_sum_launches()
+    (card_loss, card), (cpu_loss, cpu) = grads("cuda"), grads("cpu")
+    if segment_sum_launches() != launches + 1:
+        raise AssertionError("sdf step check: the card's backward skipped kernel 1")
+    loss_rel = abs(float(card_loss) - float(cpu_loss)) / abs(float(cpu_loss))
+    if loss_rel > 1e-4:
+        raise AssertionError(f"sdf step check: loss {float(card_loss)} vs {float(cpu_loss)}")
+    vs_cpu = {"loss_rel": loss_rel,
+              **grads_agree(torch, card, cpu, cfg.field.grid.n_levels, (1e-2, 1e-3), "sdf step")}
+
+    # The BVH's library is built at first use: build it outside the timed
+    # BVH build.
+    t0 = time.perf_counter()
+    sdf_mode.TriangleBVH(np.eye(3, dtype=np.float32), np.array([[0, 1, 2]], np.int32))
+    bvh_lib_s = time.perf_counter() - t0
+    bvh_s, pool_s, render_s = [], [], []
+    rec = FitRecorder(torch, SDF_PROFILE_AT)
+    with tempfile.TemporaryDirectory() as d:
+        obj = Path(d) / "csg.obj"
+        n_tris_in = write_csg_mesh(obj, SDF_MESH_RES)
+        with Patched(sdf_mode, "TriangleBVH", host_timer(torch, bvh_s)), \
+                Patched(sdf_mode, "generate_training_pool", host_timer(torch, pool_s)), \
+                Patched(sdf_mode, "render_sdf_sphere_traced", host_timer(torch, render_s)), \
+                Patched(sdf_mode, "sdf_fit_step", rec):
+            torch.cuda.synchronize()
+            reset_launches(st)
+            t0 = time.perf_counter()
+            res = run.main(["--mode", "sdf", "--scene", str(obj), "--save_mesh",
+                            "--n_steps", str(SDF_STEPS), "--output_dir", d, "--name", "sdf"])
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            launches = {k.__name__: k.launches for k in st.KERNELS}
+        ev = json.loads((Path(d) / "sdf" / "logs" / "sdf_eval.json").read_text())
+        png_ok = (Path(d) / "sdf" / "sdf_render.png").exists()
+        mesh_ok = (Path(d) / "sdf" / "mesh" / "sdf_mesh.obj").exists()
+    losses = rec.loss_curve("sdf_phase")
+    if len(losses) != SDF_STEPS or launches["segment_sum_rows"] != SDF_STEPS:
+        raise AssertionError(f"sdf_phase: {len(losses)} steps, kernel launches {launches}")
+    if any(n for k, n in launches.items() if k != "segment_sum_rows"):
+        raise AssertionError(f"sdf_phase: another kernel ran: {launches}")
+    if not (png_ok and mesh_ok and ev["iou"] == res["iou"]):
+        raise AssertionError("sdf_phase: the CLI's outputs are missing")
+
+    verts, faces = res["mesh"]
+    surf, _ = sdf_mode.generate_training_pool(res["bvh"], verts, faces, 8192, seed=3)
+    with torch.no_grad():
+        pred, _ = sdf_mode.sdf_fn(res["params"], torch.from_numpy(surf[:4096]).to("cuda"),
+                                  cfg.field)
+    surface_abs = float(pred.abs().mean())
+    out = {
+        "steps": len(losses), "launches": launches["segment_sum_rows"],
+        "mesh_triangles_in": n_tris_in, "bvh_lib_build_s": bvh_lib_s, "bvh_build_s": bvh_s[0],
+        "pool_s": pool_s[0],
+        "wall_s": wall_s, "loss_first": losses[0], "loss_last": losses[-1],
+        **rec.out, "iou": res["iou"], "surface_abs_sdf": surface_abs,
+        "render_512_ms": render_s[0] * 1e3, "mesh_triangles_out": int(len(res["sdf_mesh"][1])),
+        "step_vs_cpu": vs_cpu, "kernel": kernel,
+    }
+    print("sdf_phase " + json.dumps(out), flush=True)
+    if not (res["iou"] > SDF_IOU_BAR and surface_abs < 0.01):
+        raise AssertionError(f"sdf_phase: IoU {res['iou']}, surface |sdf| {surface_abs}")
+    return out
+
+
+def write_target_png(path: Path, n: int) -> None:
+    """tests/test_image_mode.py's kind of target at n^2: smooth x / y /
+    radial gradients with a hard flip of the (+x, +y) quadrant, 8-bit."""
+    import numpy as np
+    from PIL import Image
+
+    y, x = np.mgrid[0:n, 0:n].astype(np.float32) / (n - 1)
+    r = np.sqrt((x - 0.5) ** 2 + (y - 0.5) ** 2)
+    img = np.stack([x, y, np.clip(1.5 * r, 0, 1)], -1)
+    quad = (x > 0.5) & (y > 0.5)
+    img[quad] = 1.0 - img[quad]
+    Image.fromarray((img * 255 + 0.5).astype(np.uint8)).save(path)
+
+
+def image_kernel_phase(torch, st, cfg) -> dict:
+    """Kernel 4 at the image mode's shapes: each level's 4 x batch corner
+    updates of uniform positions, sorted, against the plain version (two
+    launches bitwise equal, within 1e-5 max|ref| + 1e-7), with its time,
+    the plain version's, ``index_add_``'s and the bytes bound, a level
+    and summed over the step's levels."""
+    from neus2_tpu_torch.engine import image_mode
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    pos = torch.rand((cfg.batch_size, 2), generator=g, device="cuda")
+    f = cfg.n_features_per_level
+    levels, err = [], 0.0
+    for res, rows in cfg.level_tables():
+        idx = torch.cat([i for i, _ in image_mode._level_corners(pos, res, rows)])
+        upd = torch.randn((idx.shape[0], f), generator=g, device="cuda")
+        idx_s, order = torch.sort(idx, stable=True)
+        keys, vals = idx_s.to(torch.int32), upd[order].t().contiguous()
+        err = max(err, max_level_err(torch, "segment_sum_planar_rows (image)",
+                                     st.segment_sum_planar_rows(keys, vals, rows),
+                                     st.segment_sum_planar_rows(keys, vals, rows),
+                                     st.sorted_segment_sum_tiles_ref(keys, vals, rows)))
+        m = idx.shape[0]
+        bound_ms, bound_by = bound(m * 4 + m * 4 * f + rows * f * 4, m * f)
+        levels.append({
+            "res": res, "rows": rows, "dense": res * res <= rows, "updates": m,
+            "kernel_ms": cuda_ms(torch, lambda: st.segment_sum_planar_rows(keys, vals, rows)),
+            "held_ms": cuda_ms(torch, lambda: st.segment_sum_planar_rows(keys, vals, rows),
+                               hold=True),
+            "plain_ms": cuda_ms(torch, lambda: st.sorted_segment_sum_tiles_ref(keys, vals, rows),
+                                iters=3),
+            "library_ms": cuda_ms(torch, lambda: torch.zeros((f, rows), device="cuda")
+                                  .index_add_(1, idx_s, vals), iters=5),
+            "entry_ms": cuda_ms(torch, lambda: image_mode.level_table_grad(idx, upd, rows)),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        })
+    out = {"max_abs_err": err, "levels": levels,
+           **{f"{k}_per_step": sum(lv[k] for lv in levels)
+              for k in ("kernel_ms", "held_ms", "plain_ms", "library_ms", "entry_ms",
+                        "bound_ms")}}
+    print("image_kernel_phase " + json.dumps(out), flush=True)
+    return out
+
+
+def image_phase(torch, st) -> dict:
+    """The image-fit mode at ``Image2DConfig``'s defaults (12 x 2 levels,
+    2^18 rows, MLP 64 x 2, batch 2^16), as a user runs it:
+    ``run.main(["--mode", "image", ...])`` on a 512^2 PNG for 1,000
+    steps.
+
+    Before it: kernel 4 at the mode's shapes (``image_kernel_phase``), and
+    one step's table gradients on the card (kernel 4 once a level) against
+    the CPU's ``index_add_`` on the same params and positions, within
+    1e-5 max|ref| + 1e-7, two runs bitwise equal.  Then the run, with the
+    counts set to 0 just before: the losses, host and device ms a step
+    over windows from step IMAGE_PROFILE_AT.  Fails unless kernel 4 ran
+    once a level and step and no other kernel ran, the loss fell and the
+    PSNR beats IMAGE_PSNR_BAR."""
+    from neus2_tpu_torch import run
+    from neus2_tpu_torch.engine import image_mode
+    from neus2_tpu_torch.utils.tree import tree_map
+
+    cfg = image_mode.Image2DConfig()
+    with tempfile.TemporaryDirectory() as d:
+        png = Path(d) / "target.png"
+        write_target_png(png, IMAGE_RES)
+        image = torch.from_numpy(run._read_image(png)).to("cuda")
+        kernel = image_kernel_phase(torch, st, cfg)
+
+        params = image_mode.init_image_params(torch.Generator().manual_seed(0), cfg)
+        pos = torch.rand((cfg.batch_size, 2), generator=torch.Generator().manual_seed(5))
+
+        def grads(device):
+            x, im = pos.to(device), image.to(device)
+            return image_mode.value_and_grads(
+                lambda p: image_mode.fit_loss(image_mode.image_forward(p, x, cfg),
+                                              image_mode._bilinear_fetch(im, x), "relative_l2"),
+                tree_map(lambda t: t.to(device), params))
+
+        before = st.segment_sum_planar_rows.launches
+        (_, card), (_, again), (_, cpu) = grads("cuda"), grads("cuda"), grads("cpu")
+        if st.segment_sum_planar_rows.launches != before + 2 * cfg.n_levels:
+            raise AssertionError("image step check: kernel 4 not once a level")
+        table_err = 0.0
+        for lvl, (a, b, c) in enumerate(zip(card["tables"], again["tables"], cpu["tables"])):
+            if not torch.equal(a, b):
+                raise AssertionError(f"image step check: level {lvl} differs between runs")
+            e = float((a.cpu() - c).abs().max())
+            if e > 1e-5 * float(c.abs().max()) + 1e-7:
+                raise AssertionError(f"image step check: level {lvl} max|diff| {e}")
+            table_err = max(table_err, e / max(float(c.abs().max()), 1e-12))
+        vs_cpu = {"tables_rel": table_err,
+                  "mlp": grads_agree(torch, card["mlp"], cpu["mlp"], 0, (0.0, 1e-4),
+                                     "image step")["mlp"]}
+
+        rec = FitRecorder(torch, IMAGE_PROFILE_AT)
+        with Patched(image_mode, "image_fit_step", rec):
+            torch.cuda.synchronize()
+            reset_launches(st)
+            t0 = time.perf_counter()
+            res = run.main(["--mode", "image", "--scene", str(png), "--n_steps",
+                            str(IMAGE_STEPS), "--output_dir", d, "--name", "image"])
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            launches = {k.__name__: k.launches for k in st.KERNELS}
+        ev = json.loads((Path(d) / "image" / "logs" / "image_eval.json").read_text())
+        recon_ok = (Path(d) / "image" / "image_recon.png").exists()
+    losses = rec.loss_curve("image_phase")
+    want = cfg.n_levels * IMAGE_STEPS
+    if len(losses) != IMAGE_STEPS or launches["segment_sum_planar_rows"] != want:
+        raise AssertionError(f"image_phase: {len(losses)} steps, kernel launches {launches}")
+    if any(n for k, n in launches.items() if k != "segment_sum_planar_rows"):
+        raise AssertionError(f"image_phase: another kernel ran: {launches}")
+    if not (recon_ok and ev["psnr"] == res["psnr"]):
+        raise AssertionError("image_phase: the CLI's outputs are missing")
+    out = {
+        "steps": len(losses), "launches": launches["segment_sum_planar_rows"],
+        "wall_s": wall_s, "loss_first": losses[0], "loss_last": losses[-1], **rec.out,
+        "psnr": res["psnr"], "step_vs_cpu": vs_cpu,
+        "kernel": {k: v for k, v in kernel.items() if k != "levels"},
+    }
+    print("image_phase " + json.dumps(out), flush=True)
+    if not res["psnr"] > IMAGE_PSNR_BAR:
+        raise AssertionError(f"image_phase: PSNR {res['psnr']} dB")
+    return out
+
+
+def mesh_outputs_phase(torch, tb) -> dict:
+    """The CLI's mesh outputs on the Testbed phase's trained state: its
+    256^3 mesh rasterized from held-out view 0 (normal map and shaded,
+    ``render_mesh_image``; the silhouette against the view's alpha), the
+    Chamfer distance to the true sphere's mesh (marching cubes of
+    ``sphere_sdf`` at 256^3) on the card, REFINE_ITERS iterations of
+    ``refine_vertices`` with the mean |sdf| at the vertices before and
+    after, and ``hashgrid_level_stats``.  Fails unless the silhouettes
+    agree on 98% of the pixels, the Chamfer distance is below 0.01, the
+    refinement lowers the mean |sdf| and every level has its stats."""
+    import numpy as np
+
+    from neus2_tpu_torch.data.synthetic import make_sphere_dataset, sphere_sdf
+    from neus2_tpu_torch.engine.mesh import chamfer_distance, extract_mesh, refine_vertices
+    from neus2_tpu_torch.models.field import sdf_fn
+    from neus2_tpu_torch.native import marching_cubes, render_mesh_image
+    from neus2_tpu_torch.ops.warp import scene_aabb
+    from neus2_tpu_torch.utils.introspect import hashgrid_level_stats
+
+    params, field = tb.state.ema_params, tb.config.field
+    box = scene_aabb(tb.config.aabb_scale)
+    verts, tris = extract_mesh(params, field, resolution=MESH_RES, box=box, aabb=box)
+    held = make_sphere_dataset(n_views=2, resolution=SCENE_RES, seed=1)
+    args = (verts, tris, held.poses[0], held.focal[0], held.principal[0], held.resolution)
+    t0 = time.perf_counter()
+    render_mesh_image(*args)  # the first call builds native/mesh_raster.cpp
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rgb, depth = render_mesh_image(*args)
+    raster_s = time.perf_counter() - t0
+    shaded, _ = render_mesh_image(*args, shaded=True)
+    hit = depth > 0
+    silhouette = float(np.mean(hit == (held.images[0, ..., 3] > 0.5)))
+    grey = shaded[hit]
+    if not (hit.mean() > 0.05 and (~hit).any() and (grey == grey[:, :1]).all()
+            and 0.0 <= rgb.min() and rgb.max() <= 1.0 and silhouette > 0.95):
+        raise AssertionError(f"mesh render: {int(hit.sum())} hits, silhouette {silhouette}")
+
+    xs = (np.arange(MESH_RES, dtype=np.float32) + 0.5) / MESH_RES
+    grid = np.stack(np.meshgrid(xs, xs, xs, indexing="ij"), axis=-1)
+    true_v, _ = marching_cubes(sphere_sdf(grid).astype(np.float32))
+    true_v = ((true_v + 0.5) / MESH_RES).astype(np.float32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chamfer = chamfer_distance(verts, true_v, device="cuda")
+    chamfer_s = time.perf_counter() - t0
+
+    v = torch.from_numpy(np.ascontiguousarray(verts)).to("cuda")
+    with torch.no_grad():
+        before = float(sdf_fn(params, v, field)[0].abs().mean())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        refined = refine_vertices(params, field, v, n_iters=REFINE_ITERS)
+        torch.cuda.synchronize()
+        refine_s = time.perf_counter() - t0
+        after = float(sdf_fn(params, refined, field)[0].abs().mean())
+
+    stats = hashgrid_level_stats(tb.state.params)
+    out = {
+        "mesh_vertices": int(len(verts)), "mesh_triangles": int(len(tris)),
+        "raster_first_ms": first_s * 1e3, "raster_ms": raster_s * 1e3,
+        "raster_hits": int(hit.sum()),
+        "silhouette_agreement": silhouette, "chamfer": chamfer, "chamfer_ms": chamfer_s * 1e3,
+        "refine_abs_sdf_before": before, "refine_abs_sdf_after": after,
+        "refine_ms": refine_s * 1e3,
+        "level_fraczero": [round(s["fraczero"], 4) for s in stats],
+        "level_sigma": [s["sigma"] for s in stats],
+    }
+    print("mesh_outputs_phase " + json.dumps(out), flush=True)
+    if not (chamfer < 0.05 and after < before and len(stats) == field.grid.n_levels
+            and all(s["size"] == s["count"] + s["numzero"] for s in stats)):
+        raise AssertionError(f"mesh outputs: {out}")
+    return out
+
+
 def field_agrees_with_cpu(torch, cfg, n: int = 16384, limits: dict | None = None) -> dict:
     """The field and its gradients at full width on the card (through the
     segment-sum kernel) vs the same inputs on the CPU (exact scatter):
@@ -1594,12 +2061,15 @@ def main() -> int:
     prof = profile_phase(torch, tt, state, images, cams, cfg)
     del state, images, cams
     tb, testbed = testbed_phase(torch, st, cfg, hyper)
+    mesh_outputs_phase(torch, testbed)
     snap = snapshot_phase(torch, st, testbed)
     del testbed
     dyn = dynamic_phase(torch, st, cfg, hyper)
     camera = camera_phase(torch, st, cfg, hyper, prof["device_ms_per_step"])
     lens = lens_phase(torch, st, cfg, hyper, prof, tb)
     bf16 = bf16_phase(torch, st, cfg, hyper, tb, prof)
+    sdf = sdf_phase(torch, st)
+    image = image_phase(torch, st)
 
     def entry(name, replaces, rec, rec_f8, launches, extra=()):
         f8_keys = ("max_abs_err", "kernel_ms", "plain_ms", "bound_ms", "library_ms", *extra)
@@ -1619,6 +2089,9 @@ def main() -> int:
          "dynamic_launches": dyn["launches_by_phase"],
          "camera_launches": camera["launches"],
          "lens_launches": lens["launches_all"], "bf16_launches": bf16["launches"],
+         "sdf_launches": sdf["launches"], "sdf_shape": {
+             k: sdf["kernel"][k] for k in ("updates_per_level", "max_abs_err", "kernel_ms",
+                                           "sort_ms", "plain_ms", "library_ms", "bound_ms")},
          "resume_launches": {"native": snap["resume"]["launches_resumed"],
                              "reference": snap["reference"]["launches"]}},
     ] + [
@@ -1629,9 +2102,15 @@ def main() -> int:
             ("segment_sum_batched_rows", "neus2_tpu/ops/segment_tile.py:211"),
         )
     ] + [
-        entry("segment_sum_planar_rows", "neus2_tpu/ops/segment_tile.py:75",
-              sorted_k["segment_sum_planar_rows"], sorted_f8["segment_sum_planar_rows"],
-              ops["launches"]["segment_sum_planar_rows"], extra=("held_ms", "library_held_ms")),
+        {**entry("segment_sum_planar_rows", "neus2_tpu/ops/segment_tile.py:75",
+                 sorted_k["segment_sum_planar_rows"], sorted_f8["segment_sum_planar_rows"],
+                 ops["launches"]["segment_sum_planar_rows"],
+                 extra=("held_ms", "library_held_ms")),
+         "image_launches": image["launches"], "image_shape": {
+             k: image["kernel"][k] for k in ("max_abs_err", "kernel_ms_per_step",
+                                             "held_ms_per_step", "plain_ms_per_step",
+                                             "library_ms_per_step", "entry_ms_per_step",
+                                             "bound_ms_per_step")}},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,12 @@
-"""SDF grid query and marching-cubes mesh export (port of
+"""SDF grid query, marching-cubes mesh export and the mesh tools (port of
 ``neus2_tpu/engine/mesh.py``; reference Testbed::get_density_on_grid,
 src/testbed_nerf.cu:4096-4130, marching_cubes_gpu, src/marching_cubes.cu:794,
-and the OBJ/PLY export with the dataset un-warp, src/testbed.cu:308-320).
+the OBJ/PLY export with the dataset un-warp, src/testbed.cu:308-320, and the
+mesh-vertex optimization, src/marching_cubes.cu:720-762).
 
 The SDF is evaluated on the device in chunks of 2^16 points; marching cubes
-runs on the host (``native.py``) over the grid, copied back once.
+runs on the host (``native.py``) over the grid, copied back once.  The
+Chamfer distance and the vertex refinement run on the device too.
 """
 
 from __future__ import annotations
@@ -14,9 +16,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from neus2_tpu_torch.models.field import FieldConfig, field_forward, sdf_fn
+from neus2_tpu_torch.models.field import FieldConfig, field_forward, sdf_fn, sdf_normal_features
 from neus2_tpu_torch.native import marching_cubes
 from neus2_tpu_torch.ops.warp import AABB, warp_direction
+from neus2_tpu_torch.utils.device import resolve_device
 
 
 def _vec3(v, device) -> torch.Tensor:
@@ -155,6 +158,28 @@ def vertex_normals(verts: np.ndarray, tris: np.ndarray) -> np.ndarray:
     return n.astype(np.float32)
 
 
+def smooth_vertices_1ring(verts: np.ndarray, tris: np.ndarray,
+                          amount: float = 0.5) -> np.ndarray:
+    """1-ring centroid smoothing (accumulate_1ring's vertex average,
+    blended by ``amount`` as k_smooth_amount blends it), in float64 on the
+    host; vertices on no triangle stay put."""
+    v = np.asarray(verts, np.float64)
+    t = np.asarray(tris)
+    acc = np.zeros_like(v)
+    cnt = np.zeros(len(v))
+    # Each triangle gives each corner its two other vertices.
+    for k in range(3):
+        for other in ((k + 1) % 3, (k + 2) % 3):
+            cnt += np.bincount(t[:, k], minlength=len(v))
+            for c in range(3):
+                acc[:, c] += np.bincount(t[:, k], weights=v[t[:, other], c], minlength=len(v))
+    ring = acc / np.maximum(cnt, 1.0)[:, None]
+    has = cnt > 0
+    out = v.copy()
+    out[has] = v[has] * (1.0 - amount) + ring[has] * amount
+    return out.astype(np.float32)
+
+
 def save_mesh_obj(path: str | Path, verts: np.ndarray, tris: np.ndarray,
                   scale: float = 1.0, offset=(0.0, 0.0, 0.0),
                   normals: np.ndarray | None = None):
@@ -203,3 +228,68 @@ def save_mesh_ply(path: str | Path, verts: np.ndarray, tris: np.ndarray,
             f.write(row + "\n")
         for t in tris:
             f.write(f"3 {t[0]} {t[1]} {t[2]}\n")
+
+
+@torch.no_grad()
+def chamfer_distance(a: np.ndarray, b: np.ndarray, n_sample: int = 30000, seed: int = 0,
+                     device="cuda", chunk: int = 1024) -> float:
+    """Symmetric Chamfer distance between two point sets: sqrt(mean nearest
+    squared distance) each way, summed.  A set larger than ``n_sample`` is
+    subsampled with numpy ``default_rng(seed).choice(replace=False)`` as
+    the JAX package subsamples it.  The squared distances are summed from
+    the coordinate differences on ``device``, ``chunk`` points at a time
+    (the matrix-product form |p|^2 - 2 p.q + |q|^2 cancels near 0)."""
+    rng = np.random.default_rng(seed)
+    if len(a) > n_sample:
+        a = a[rng.choice(len(a), n_sample, replace=False)]
+    if len(b) > n_sample:
+        b = b[rng.choice(len(b), n_sample, replace=False)]
+    dev = resolve_device(device)
+    pa = torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    pb = torch.as_tensor(np.asarray(b, np.float32), device=dev)
+
+    def one_way(p, q):
+        mins = [((q[None] - c[:, None]) ** 2).sum(-1).amin(1) for c in torch.split(p, chunk)]
+        return torch.cat(mins).mean()
+
+    return float(torch.sqrt(one_way(pa, pb)) + torch.sqrt(one_way(pb, pa)))
+
+
+def ring_centroids(verts: torch.Tensor, faces: torch.Tensor) -> torch.Tensor:
+    """Each vertex's 1-ring centroid (reference compute_mesh_1ring /
+    accumulate_1ring, src/marching_cubes.cu:720-727: every triangle gives
+    each corner its two other vertices, weights normalized); a vertex on no
+    triangle keeps its position.  ``index_add_``: on the card its adds
+    land in atomic order, so sums may differ in the last bit."""
+    faces = faces.long()
+    a, b, c = faces[:, 0], faces[:, 1], faces[:, 2]
+    pos = torch.zeros_like(verts)
+    w = torch.zeros(verts.shape[0], dtype=verts.dtype, device=verts.device)
+    for i, j, k in ((a, b, c), (b, c, a), (c, a, b)):
+        pos.index_add_(0, i, verts[j] + verts[k])
+        w.index_add_(0, i, torch.full_like(i, 2, dtype=verts.dtype))
+    return torch.where(w[:, None] > 0, pos / torch.clamp_min(w, 1.0)[:, None], verts)
+
+
+@torch.no_grad()
+def refine_vertices(params, config: FieldConfig, verts_w: torch.Tensor, n_iters: int = 5,
+                    step: float = 0.8, faces: torch.Tensor | None = None,
+                    k_smooth: float = 0.0, k_inflate: float = 0.0) -> torch.Tensor:
+    """Mesh-vertex optimization (reference compute_mesh_opt_gradients,
+    src/marching_cubes.cu:728-762) on warped-coordinate vertices: each
+    iteration moves a vertex by a Newton projection onto the SDF's zero set
+    (s n / |n|^2, scaled by ``step``), minus ``k_smooth`` times its offset
+    from the 1-ring centroid (needs ``faces``), plus ``k_inflate`` along
+    the unit normal.  The normal is ``sdf_normal_features``' forward
+    tangent."""
+    v = verts_w
+    for _ in range(n_iters):
+        s, n, _ = sdf_normal_features(params, v, config)
+        n2 = (n * n).sum(-1, keepdim=True)
+        v_new = v - step * s[:, None] * n / torch.clamp_min(n2, 1e-8)
+        if k_smooth and faces is not None:
+            v_new = v_new - k_smooth * (v - ring_centroids(v, faces))
+        if k_inflate:
+            v_new = v_new + k_inflate * (n / torch.sqrt(torch.clamp_min(n2, 1e-12)))
+        v = v_new
+    return v

@@ -19,7 +19,10 @@ leaves, so a snapshot either package writes loads into the other.
 
 ``config_from_jax``, ``dataset_from_jax`` and ``cameras_from_jax`` carry
 the configs (``compute_dtype`` mapped by its name, bfloat16 to
-``torch.bfloat16``), a dataset and the cameras with every lens field.
+``torch.bfloat16``), a dataset and the cameras with every lens field;
+``sdf_config_from_jax``, ``image_config_from_jax`` and
+``image_params_from_jax`` the SDF and image modes' configs and the image
+mode's parameters (the SDF mode's are field parameters: ``params_from_jax``).
 """
 
 from __future__ import annotations
@@ -33,8 +36,10 @@ import torch
 
 from neus2_tpu_torch.data.dataset import NerfDataset
 from neus2_tpu_torch.engine.error_map import ErrorMapState, init_error_map
+from neus2_tpu_torch.engine.image_mode import Image2DConfig
 from neus2_tpu_torch.engine.occupancy import OccupancyGrid
 from neus2_tpu_torch.engine.rays import Cameras
+from neus2_tpu_torch.engine.sdf_mode import SdfFitConfig
 from neus2_tpu_torch.engine.train import TrainConfig, TrainState, init_cam_params
 from neus2_tpu_torch.models.delta import init_accumulated, init_delta
 from neus2_tpu_torch.models.field import FieldConfig
@@ -337,6 +342,24 @@ def config_from_jax(cfg):
             v = config_from_jax(v)
         out[f.name] = v
     return cls(**out)
+
+
+def sdf_config_from_jax(cfg) -> SdfFitConfig:
+    """The port's ``SdfFitConfig`` with a JAX one's fields."""
+    return SdfFitConfig(**{f.name: config_from_jax(cfg.field) if f.name == "field"
+                           else getattr(cfg, f.name) for f in dataclasses.fields(SdfFitConfig)})
+
+
+def image_config_from_jax(cfg) -> Image2DConfig:
+    """The port's ``Image2DConfig`` with a JAX one's fields."""
+    return Image2DConfig(**{f.name: getattr(cfg, f.name)
+                            for f in dataclasses.fields(Image2DConfig)})
+
+
+def image_params_from_jax(params: dict, device="cpu") -> dict:
+    """The image mode's {"tables": per-level (rows, F), "mlp"} (numpy
+    leaves) as tensors; the table tuple becomes a list."""
+    return tree_to_torch({"tables": params["tables"], "mlp": params["mlp"]}, device)
 
 
 def dataset_from_jax(ds) -> NerfDataset:

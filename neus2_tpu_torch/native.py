@@ -1,11 +1,13 @@
 """ctypes bindings to the repo's host C++ in ``native/`` (the port's own
-counterpart of ``neus2_tpu/native/__init__.py``: marching cubes and the
-threaded PNG/JPEG decoder).
+counterpart of ``neus2_tpu/native/__init__.py``: marching cubes, the
+threaded PNG/JPEG decoder, the triangle BVH of the SDF-from-mesh mode and
+the eval's z-buffer mesh rasterizer).
 
 Each source is compiled on first use by ``utils/host_build.py`` into
 ``neus2_tpu_torch/_build/``.  This is host code, not a GPU kernel: the
 mesh's SDF grid is evaluated on the card (``engine/mesh.py``) and copied to
-the host once.
+the host once; the BVH labels the SDF mode's training points on the host,
+as the JAX package does.
 """
 
 from __future__ import annotations
@@ -108,3 +110,131 @@ def decode_images(paths, n_threads: int = 0) -> list:
     finally:
         lib.il_free(h)
     return out
+
+
+@functools.cache
+def _bvh_lib() -> ctypes.CDLL:
+    lib = host_build.load("triangle_bvh", ("-pthread",))
+    lib.tbvh_build.restype = ctypes.c_void_p
+    lib.tbvh_build.argtypes = [_F32P, ctypes.c_int64, _I32P, ctypes.c_int64]
+    lib.tbvh_free.argtypes = [ctypes.c_void_p]
+    for fn in ("tbvh_signed_distance", "tbvh_unsigned_distance"):
+        getattr(lib, fn).argtypes = [ctypes.c_void_p, _F32P, ctypes.c_int64, _F32P,
+                                     ctypes.c_int]
+    lib.tbvh_raycast.argtypes = [ctypes.c_void_p, _F32P, _F32P, ctypes.c_int64, _F32P,
+                                 _I32P, ctypes.c_int]
+    lib.tbvh_face_normals.argtypes = [ctypes.c_void_p, _F32P]
+    lib.tbvh_n_tris.restype = ctypes.c_int64
+    lib.tbvh_n_tris.argtypes = [ctypes.c_void_p]
+    return lib
+
+
+def _points(a: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(a, np.float32).reshape(-1, 3)
+
+
+class TriangleBVH:
+    """Host triangle BVH over ``native/triangle_bvh.cpp``: the ground-truth
+    signed-distance and raycast oracle of the SDF-from-mesh mode (reference
+    src/triangle_bvh.cu TriangleBvh4: unsigned_distance :405, the raystab
+    signed distance :419, raytrace).  The sign is negative inside (a
+    majority of three parity stabs).  ``raycast`` keeps the source's
+    absolute Moller-Trumbore cut, |det| < 1e-9 (triangle_bvh.cpp:115-119):
+    a ray misses a triangle whose determinant lies below it, however the
+    triangle is scaled.
+
+    A mesh with no face raises ``ValueError``: ``tbvh_build`` would read
+    past its node array there."""
+
+    def __init__(self, verts: np.ndarray, faces: np.ndarray):
+        self._verts = _points(verts)
+        self._faces = np.ascontiguousarray(faces, np.int32).reshape(-1, 3)
+        if self._faces.shape[0] == 0:
+            raise ValueError("TriangleBVH needs a mesh with at least one face")
+        if self._faces.min() < 0 or self._faces.max() >= self._verts.shape[0]:
+            raise ValueError("TriangleBVH: a face indexes past the vertex array")
+        self._lib = _bvh_lib()
+        self._h = self._lib.tbvh_build(self._verts.ctypes.data_as(_F32P), self._verts.shape[0],
+                                       self._faces.ctypes.data_as(_I32P), self._faces.shape[0])
+
+    def __del__(self):
+        if getattr(self, "_h", None):
+            self._lib.tbvh_free(self._h)
+            self._h = None
+
+    def _distance(self, fn, pts, n_threads: int) -> np.ndarray:
+        pts = _points(pts)
+        out = np.empty(pts.shape[0], np.float32)
+        fn(self._h, pts.ctypes.data_as(_F32P), pts.shape[0], out.ctypes.data_as(_F32P),
+           int(n_threads))
+        return out
+
+    def signed_distance(self, pts: np.ndarray, n_threads: int = 0) -> np.ndarray:
+        """(N,) signed distance of (N, 3) points, negative inside;
+        ``n_threads`` 0 = every hardware thread."""
+        return self._distance(self._lib.tbvh_signed_distance, pts, n_threads)
+
+    def unsigned_distance(self, pts: np.ndarray, n_threads: int = 0) -> np.ndarray:
+        return self._distance(self._lib.tbvh_unsigned_distance, pts, n_threads)
+
+    def raycast(self, origins: np.ndarray, dirs: np.ndarray, n_threads: int = 0):
+        """Closest hit -> (t (N,), triangle (N,) in the BVH's order); t = -1
+        and triangle -1 on a miss."""
+        o, d = _points(origins), _points(dirs)
+        t = np.empty(o.shape[0], np.float32)
+        tri = np.empty(o.shape[0], np.int32)
+        self._lib.tbvh_raycast(self._h, o.ctypes.data_as(_F32P), d.ctypes.data_as(_F32P),
+                               o.shape[0], t.ctypes.data_as(_F32P), tri.ctypes.data_as(_I32P),
+                               int(n_threads))
+        return t, tri
+
+    def face_normals(self) -> np.ndarray:
+        """(F, 3) unit face normals in the BVH's triangle order."""
+        out = np.empty((self._lib.tbvh_n_tris(self._h), 3), np.float32)
+        self._lib.tbvh_face_normals(self._h, out.ctypes.data_as(_F32P))
+        return out
+
+
+@functools.cache
+def _raster_lib() -> ctypes.CDLL:
+    lib = host_build.load("mesh_raster")
+    lib.raster_mesh.restype = None
+    lib.raster_mesh.argtypes = [
+        _F32P, ctypes.c_int64, _I32P, ctypes.c_int64, _F32P,
+        ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, _F32P, _F32P, _F32P,
+    ]
+    return lib
+
+
+def render_mesh_image(verts: np.ndarray, faces: np.ndarray, pose_c2w: np.ndarray,
+                      focal, principal, resolution, shaded: bool = False,
+                      light_dir: np.ndarray | None = None) -> tuple[np.ndarray, np.ndarray]:
+    """Rasterize a mesh from a camera with ``native/mesh_raster.cpp``: the
+    eval's mesh panel (reference scripts/render_utils.py:418-421 render_mesh,
+    scripts/run.py:68 --shaded_mesh).
+
+    ``pose_c2w`` (3, 4) ngp camera-to-world; ``focal`` (fx, fy) in pixels;
+    ``principal`` (cx, cy) as fractions of ``resolution`` (W, H).  Returns
+    (rgb (H, W, 3) float32: the world normal map 0.5 n + 0.5, or Lambertian
+    grey under a headlight (or ``light_dir``) when ``shaded``; depth (H,
+    W)); the background is 0.  The world-to-camera matrix is built in
+    float32, as the JAX binding builds it."""
+    verts = np.ascontiguousarray(verts, np.float32).reshape(-1, 3)
+    faces = np.ascontiguousarray(faces, np.int32).reshape(-1, 3)
+    pose = np.asarray(pose_c2w, np.float32).reshape(3, 4)
+    rot, t = pose[:, :3], pose[:, 3]
+    w2c = np.ascontiguousarray(np.concatenate([rot.T, (-rot.T @ t)[:, None]], axis=1),
+                               np.float32)
+    w, h = int(resolution[0]), int(resolution[1])
+    rgb = np.zeros((h, w, 3), np.float32)
+    depth = np.zeros((h, w), np.float32)
+    light = None if light_dir is None else np.ascontiguousarray(light_dir, np.float32)
+    _raster_lib().raster_mesh(
+        verts.ctypes.data_as(_F32P), verts.shape[0], faces.ctypes.data_as(_I32P),
+        faces.shape[0], w2c.ctypes.data_as(_F32P), float(focal[0]), float(focal[1]),
+        float(principal[0]) * w, float(principal[1]) * h, w, h, int(bool(shaded)),
+        None if light is None else light.ctypes.data_as(_F32P),
+        rgb.ctypes.data_as(_F32P), depth.ctypes.data_as(_F32P),
+    )
+    return rgb, depth

@@ -24,9 +24,22 @@ when frame k finishes, and the transform for the last frame.  Runs on the
 card unless ``--device cpu`` is given.  ``--fp16_images`` stores the
 training texels in fp16, ``--bf16`` runs the MLPs and the encoder's
 backward on bf16 operands with fp32 sums, and ``--save_density_png``
-writes the SDF grid's slice mosaic.  Multi-GPU, the sdf and image modes and
-the other mesh diagnostics (``--shaded_mesh``, ``--ref_mesh``,
-``--grid_stats``) are not ported yet.
+writes the SDF grid's slice mosaic.  The mesh outputs: with
+``--save_eval_images``, each eval view's mesh rasterized as
+``view_{i:03d}_mesh.png`` (Lambertian with ``--shaded_mesh``, a normal map
+with ``--save_mesh`` alone), ``--ref_mesh`` (Chamfer distance to a reference OBJ, in the
+dataset's space), ``--mesh_largest_component`` and ``--grid_stats``.
+
+The other modes take ``--scene`` as their input:
+  python -m neus2_tpu_torch.run --mode sdf --scene mesh.obj --save_mesh
+      fits a neural SDF to the mesh (``engine/sdf_mode.py``; 2,000 steps by
+      default) and writes logs/sdf_eval.json (IoU), sdf_render.png (a
+      sphere-traced normal map at ``--sdf_render_res``) and
+      mesh/sdf_mesh.obj;
+  python -m neus2_tpu_torch.run --mode image --scene image.png
+      fits rgb(x, y) (``engine/image_mode.py``; 1,000 steps by default)
+      and writes logs/image_eval.json (PSNR) and image_recon.png.
+Multi-GPU is not ported yet.
 """
 
 from __future__ import annotations
@@ -72,6 +85,14 @@ def parse_args(argv=None):
     p.add_argument("--save_density_png", action="store_true",
                    help="save a slice mosaic PNG of the SDF grid "
                         "(reference save_density_grid_to_png)")
+    p.add_argument("--mesh_largest_component", action="store_true",
+                   help="drop disconnected floaters from the exported mesh")
+    p.add_argument("--ref_mesh", default=None,
+                   help="reference mesh (.obj) for a Chamfer-distance eval")
+    p.add_argument("--shaded_mesh", action="store_true",
+                   help="with --save_eval_images: rasterize the extracted mesh from each "
+                        "eval view, Lambertian-shaded (with --save_mesh and without this "
+                        "flag the panel is a normal map)")
     p.add_argument("--test_transforms", default=None,
                    help="held-out transforms json for PSNR/SSIM eval")
     p.add_argument("--eval_per_frame", action="store_true",
@@ -91,8 +112,19 @@ def parse_args(argv=None):
                    help="render PNG frames along a camera path: a CameraPath json, or "
                         "'orbit' for a circular orbit")
     p.add_argument("--render_n_frames", type=int, default=60)
+    p.add_argument("--hit_oversample", type=int, default=None,
+                   help="probe N * n_rays candidate pixels and fill the batch with rays "
+                        "that hit the occupancy grid; 1 = off")
+    p.add_argument("--near_distance", type=float, default=None,
+                   help="training rays start this far from the camera (< 0 or unset: "
+                        "the config's)")
+    p.add_argument("--grid_stats", action="store_true",
+                   help="log per-level hash-grid weight stats after training")
     p.add_argument("--device", default="cuda", help="torch device (default: the card)")
-    p.add_argument("--mode", choices=("nerf", "sdf", "image"), default="nerf")
+    p.add_argument("--mode", choices=("nerf", "sdf", "image"), default="nerf",
+                   help="nerf (NeuS2 reconstruction), sdf (fit a mesh's SDF; --scene is an "
+                        "OBJ) or image (fit an image; --scene is a PNG/JPEG)")
+    p.add_argument("--sdf_render_res", type=int, default=512)
     p.add_argument("--snapshot", default=None,
                    help="load a snapshot (native, from either package, or reference format) "
                         "after the scene")
@@ -104,15 +136,18 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.mode != "nerf":
-        raise NotImplementedError(f"--mode {args.mode} is not ported yet")
     if args.multichip == "on":
         raise NotImplementedError("multi-GPU training is not ported yet")
+
+    out = Path(args.output_dir) / args.name
+    if args.mode == "sdf":
+        return main_sdf(args, out)
+    if args.mode == "image":
+        return main_image(args, out)
 
     from neus2_tpu_torch.api.testbed import Hyperparams, Testbed, config_from_json
     from neus2_tpu_torch.engine.train import TrainConfig
 
-    out = Path(args.output_dir) / args.name
     for sub in ("checkpoints", "mesh", "logs"):
         (out / sub).mkdir(parents=True, exist_ok=True)
     log_path = out / "log.txt"
@@ -129,8 +164,12 @@ def main(argv=None):
         changes["n_rays"] = args.n_rays
     if args.samples_per_ray:
         changes["samples_per_ray"] = args.samples_per_ray
+    if args.hit_oversample:
+        changes["hit_oversample"] = args.hit_oversample
     if args.depth_supervision_lambda is not None:
         changes["depth_supervision_lambda"] = args.depth_supervision_lambda
+    if args.near_distance is not None and args.near_distance >= 0:
+        changes["near"] = args.near_distance
     if args.bf16:
         changes["field"] = dataclasses.replace(config.field, compute_dtype=torch.bfloat16)
     if changes:
@@ -160,11 +199,17 @@ def main(argv=None):
         train(tb, args, out, log)
     tb.prepare_for_test()
 
+    if args.grid_stats:
+        from neus2_tpu_torch.utils.introspect import format_level_stats, hashgrid_level_stats
+
+        log("hashgrid level stats:\n" + format_level_stats(hashgrid_level_stats(tb.state.params)))
+
     if args.save_mesh:
         mesh_path = out / "mesh" / "mesh.obj"
         log(f"extracting mesh @ {args.mesh_resolution}^3 -> {mesh_path}")
         verts, tris = tb.compute_and_save_marching_cubes_mesh(
-            mesh_path, resolution=args.mesh_resolution)
+            mesh_path, resolution=args.mesh_resolution,
+            keep_largest_component=args.mesh_largest_component)
         log(f"mesh: {len(verts)} vertices, {len(tris)} triangles")
 
     if args.save_density_png:
@@ -178,6 +223,19 @@ def main(argv=None):
         log(f"density grid png -> {png_path} "
             f"({nvox} surface voxels, {nnear} near-crossing lattice points)")
 
+    if args.ref_mesh:
+        from neus2_tpu_torch.engine.mesh import chamfer_distance
+        from neus2_tpu_torch.engine.sdf_mode import load_mesh_obj
+
+        if not args.save_mesh:
+            verts, tris = tb.compute_and_save_marching_cubes_mesh(
+                out / "mesh" / "eval_mesh.obj", resolution=args.mesh_resolution)
+        # OBJ exports live in the dataset's space ((v - offset) / scale):
+        # compare both meshes there.
+        verts_ds = (verts - np.asarray(tb.dataset.offset, np.float32)) / tb.dataset.scale
+        cd = chamfer_distance(verts_ds, load_mesh_obj(args.ref_mesh)[0], device=tb.device)
+        log(f"chamfer vs {args.ref_mesh}: {cd:.6f}")
+
     if args.render_path:
         log(f"rendering {args.render_n_frames} frames along {args.render_path}")
         render_camera_path(tb, args.render_path, args.render_n_frames, out / "frames",
@@ -189,8 +247,22 @@ def main(argv=None):
                    args.screenshot_frames, log)
 
     if args.test_transforms:
+        # The eval's mesh panel (reference render_utils.py:418-421): the
+        # extracted mesh rasterized from each eval view.
+        eval_mesh = None
+        if args.save_eval_images and (args.save_mesh or args.shaded_mesh):
+            if args.save_mesh:
+                eval_mesh = (verts, tris)
+            else:
+                from neus2_tpu_torch.engine.mesh import extract_mesh
+                from neus2_tpu_torch.ops.warp import scene_aabb
+
+                eval_mesh = extract_mesh(tb.state.ema_params, tb.config.field,
+                                         resolution=args.mesh_resolution,
+                                         box=scene_aabb(tb.config.aabb_scale))
         psnrs, ssims = evaluate(tb, args.test_transforms, args.eval_spp, log,
-                                save_dir=(out / "evaluation") if args.save_eval_images else None)
+                                save_dir=(out / "evaluation") if args.save_eval_images else None,
+                                mesh=eval_mesh, mesh_shaded=args.shaded_mesh)
         metrics = {
             "psnr_mean": float(np.mean(psnrs)),
             "ssim_mean": float(np.mean(ssims)),
@@ -333,8 +405,8 @@ def _make_per_frame_eval(log):
     return hook
 
 
-def evaluate(tb, test_transforms: str, spp: int, log, save_dir: Path | None = None
-             ) -> tuple[list, list]:
+def evaluate(tb, test_transforms: str, spp: int, log, save_dir: Path | None = None,
+             mesh=None, mesh_shaded: bool = False) -> tuple[list, list]:
     """PSNR / SSIM on held-out views (reference run.py:251-344 protocol:
     black background, ``spp`` jittered passes, min transmittance 1e-4,
     sRGB space), through the views' lens unless the Testbed's
@@ -342,7 +414,9 @@ def evaluate(tb, test_transforms: str, spp: int, log, save_dir: Path | None = No
     renders at its true size and is scored on its true pixels only, not on
     the loader's zero padding.  ``save_dir``: each view's render | GT | 4
     |render - GT| as ``view_{i:03d}.png`` (the reference's cal_psnr image
-    dumps)."""
+    dumps) and, given ``mesh`` (verts, tris), the mesh rasterized from the
+    view as ``view_{i:03d}_mesh.png``: a normal map, or Lambertian grey
+    when ``mesh_shaded`` (``native.render_mesh_image``)."""
     from neus2_tpu_torch.data.dataset import load_dataset
     from neus2_tpu_torch.engine.render import render_image
     from neus2_tpu_torch.ops.image import psnr, srgb_eval_target, ssim
@@ -369,7 +443,82 @@ def evaluate(tb, test_transforms: str, spp: int, log, save_dir: Path | None = No
             save_dir.mkdir(parents=True, exist_ok=True)
             _write_png(save_dir / f"view_{i:03d}.png",
                        torch.cat([rgb, target, (rgb - target).abs() * 4], dim=1))
+            if mesh is not None:
+                from neus2_tpu_torch.native import render_mesh_image
+
+                mrgb, _ = render_mesh_image(
+                    mesh[0], mesh[1], ds.poses[i], ds.focal[i], ds.principal[i], (w_i, h_i),
+                    shaded=mesh_shaded)
+                _write_png(save_dir / f"view_{i:03d}_mesh.png", mrgb)
     return psnrs, ssims
+
+
+def main_sdf(args, out: Path) -> dict:
+    """The SDF-from-mesh mode (reference main.cu's mode dispatch ->
+    testbed_sdf.cu): fit ``--scene`` (an OBJ) for ``--n_steps`` (2,000)
+    steps, log the IoU to logs/sdf_eval.json, write sdf_render.png (a
+    sphere-traced normal map from eye (0.5, -1.1, 1.0)) and, with
+    ``--save_mesh``, mesh/sdf_mesh.obj.  Returns the run's parts."""
+    from neus2_tpu_torch.data.synthetic import _look_at
+    from neus2_tpu_torch.engine import sdf_mode
+    from neus2_tpu_torch.engine.mesh import extract_mesh, save_mesh_obj
+
+    out.mkdir(parents=True, exist_ok=True)
+    steps = args.n_steps or 2000
+    params, cfg, bvh, mesh = sdf_mode.fit_mesh_sdf(args.scene, n_steps=steps, seed=args.seed,
+                                                   device=args.device)
+    iou = sdf_mode.eval_iou(params, cfg, bvh)
+    print(f"sdf mode: {steps} steps, IoU {iou:.4f}", flush=True)
+    (out / "logs").mkdir(parents=True, exist_ok=True)
+    (out / "logs" / "sdf_eval.json").write_text(json.dumps({"steps": steps, "iou": iou}))
+
+    dev = params["variance"].device
+    pose = _look_at(np.array([0.5, -1.1, 1.0], np.float32), np.full(3, 0.5, np.float32),
+                    np.array([0.0, 0.0, 1.0], np.float32))
+    res = args.sdf_render_res
+    focal = torch.full((2,), 0.5 * res / np.tan(0.35), dtype=torch.float32, device=dev)
+    rgb, _, _ = sdf_mode.render_sdf_sphere_traced(
+        params, torch.as_tensor(pose, device=dev), focal, cfg, resolution=(res, res))
+    _write_png(out / "sdf_render.png", rgb)
+    result = {"params": params, "config": cfg, "bvh": bvh, "mesh": mesh, "iou": iou}
+    if args.save_mesh:
+        v, f = extract_mesh(params, cfg.field, resolution=args.mesh_resolution)
+        (out / "mesh").mkdir(parents=True, exist_ok=True)
+        save_mesh_obj(out / "mesh" / "sdf_mesh.obj", v, f)
+        print(f"mesh saved ({v.shape[0]} verts)", flush=True)
+        result["sdf_mesh"] = (v, f)
+    return result
+
+
+def _read_image(path) -> np.ndarray:
+    """An image file as float32 (H, W, C) in [0, 1] (8-bit values scaled
+    by 1/255, as the JAX CLI scales them), read with Pillow."""
+    from PIL import Image
+
+    with Image.open(path) as im:
+        if im.mode not in ("RGB", "RGBA"):
+            im = im.convert("RGB")
+        img = np.asarray(im, np.float32)
+    return img / 255.0 if img.max() > 1.5 else img
+
+
+def main_image(args, out: Path) -> dict:
+    """The image-fit mode (reference testbed_image.cu:220): fit ``--scene``
+    for ``--n_steps`` (1,000) steps, log the PSNR to logs/image_eval.json
+    and write image_recon.png.  Returns the run's parts."""
+    from neus2_tpu_torch.engine import image_mode
+
+    out.mkdir(parents=True, exist_ok=True)
+    img = _read_image(args.scene)
+    steps = args.n_steps or 1000
+    params, psnr = image_mode.fit_image(img, n_steps=steps, seed=args.seed, device=args.device)
+    print(f"image mode: {steps} steps, reconstruction PSNR {psnr:.2f} dB", flush=True)
+    (out / "logs").mkdir(parents=True, exist_ok=True)
+    (out / "logs" / "image_eval.json").write_text(json.dumps({"steps": steps, "psnr": psnr}))
+    cfg = image_mode.Image2DConfig()
+    recon = image_mode.render_image_fit(params, cfg, (img.shape[1], img.shape[0]))
+    _write_png(out / "image_recon.png", recon)
+    return {"params": params, "config": cfg, "psnr": psnr, "recon": recon}
 
 
 if __name__ == "__main__":

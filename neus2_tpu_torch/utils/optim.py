@@ -10,7 +10,8 @@ without an optimizer library; reference tcnn adam.h:52-160, exponential_decay.h,
   * optional AdaBound clamping and per-component freezing.
 
 ``plain_adam_*`` is the textbook Adam of the dynamic scenes' delta
-transform.
+transform, the camera group and the SDF and image fit modes;
+``value_and_grads`` takes a tree's loss and gradients as JAX does.
 
 The state is ``{"mu", "nu", "steps", "count"}`` with the parameter tree's
 structure, as in the JAX package; ``count`` is a host integer.
@@ -161,6 +162,23 @@ def plain_adam_update(grads: Any, state: dict, lr: float, eps: float = 1e-10):
     nu = tree_map(lambda g, v: (1 - b2) * g * g + b2 * v, grads, state["nu"])
     updates = tree_map(lambda m, v: -lr * ((m / c1) / (torch.sqrt(v / c2) + eps)), mu, nu)
     return updates, {"mu": mu, "nu": nu, "count": count}
+
+
+def plain_adam_apply(params: Any, state: dict, grads: Any, lr: float, eps: float):
+    """``plain_adam_update`` added to the params -> (new params, new state)
+    (the JAX package's fit modes apply their Adam so)."""
+    updates, state = plain_adam_update(grads, state, lr, eps=eps)
+    return tree_map(lambda p, u: p + u, params, updates), state
+
+
+def value_and_grads(loss_fn, params: Any):
+    """(loss, gradient tree) of ``loss_fn(params)``; a leaf the loss does
+    not reach gets a zero gradient, as the JAX package's autodiff gives it."""
+    leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
+    loss = loss_fn(tree_unflatten_like(params, leaves))
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+    return loss.detach(), tree_unflatten_like(params, grads)
 
 
 @torch.no_grad()

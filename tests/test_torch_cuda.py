@@ -6,8 +6,10 @@ the residual grid's freeze on the card against the CPU, the error
 map's deposit, rebuild and sampling on the card against the CPU and its
 deposit against itself, a native snapshot's round trip on the card, the
 rays of every camera model and the fp16 texel gather on the card against
-the CPU, and bf16 compute (the encoder's backward, the MLP) on the card
-against the CPU's bf16 path.
+the CPU, bf16 compute (the encoder's backward, the MLP) on the card
+against the CPU's bf16 path, and the SDF and image fit modes' steps on the
+card against the CPU (kernel 1 in the SDF step, kernel 4 once a level in
+the image step, held against its plain version at that step's shapes).
 
 Every test here needs a CUDA device and skips without one.  The file
 imports neither JAX nor the JAX package, so it runs where they are absent;
@@ -782,3 +784,113 @@ def test_bf16_encoder_and_mlp_on_card_match_cpu(cuda):
         assert torch.isfinite(a).all()
         assert float((a - b).abs().max()) <= 1e-2 * float(b.abs().max())
     assert float((card[1] - cpu[1]).abs().max()) <= 1e-4 * float(cpu[1].abs().max())
+
+
+def _sdf_inputs():
+    """A 6-level SDF fit config, its CPU params (tables scaled so the grid
+    matters), a cube-ish pool and one batch of indices."""
+    from neus2_tpu_torch.engine import sdf_mode
+    from neus2_tpu_torch.models.field import FieldConfig
+    from neus2_tpu_torch.ops.hashgrid import HashGridConfig
+
+    cfg = sdf_mode.SdfFitConfig(
+        field=FieldConfig(grid=HashGridConfig(n_levels=6, log2_hashmap_size=14,
+                                              per_level_scale=1.5), sdf_n_hidden=2),
+        batch_size=8192)
+    params, opt = sdf_mode.init_sdf_fit(cfg, seed=0, device="cpu")
+    params["hashgrid"] = [t * 1e3 for t in params["hashgrid"]]
+    g = torch.Generator().manual_seed(1)
+    pts = torch.rand((1 << 15, 3), generator=g)
+    dist = (pts - 0.5).abs().amax(-1) - 0.2
+    idx = torch.randint(0, pts.shape[0], (cfg.batch_size,), generator=g)
+    return sdf_mode, cfg, params, opt, pts, dist, idx
+
+
+def test_sdf_fit_step_on_card_matches_cpu(cuda):
+    """One SDF-mode step's loss and gradients on the card (kernel 1 once)
+    against the CPU on the same params and indices: the loss rtol 1e-4,
+    table gradients within 1e-2 of their max (bf16-quantized sums on the
+    card, as in test_train_step_on_card_matches_cpu), MLP gradients within
+    1e-3; the step's new params finite."""
+    sdf_mode, cfg, params, opt, pts, dist, idx = _sdf_inputs()
+
+    def grads(device):
+        p = _to(params, device)
+        x, d = pts.to(device)[idx.to(device)], dist.to(device)[idx.to(device)]
+        return sdf_mode.value_and_grads(
+            lambda q: sdf_mode.fit_loss(sdf_mode.sdf_fn(q, x, cfg.field)[0], d, cfg.loss), p)
+
+    before = segment_tile.segment_sum_rows.launches
+    card_loss, card = grads(cuda)
+    torch.cuda.synchronize()
+    assert segment_tile.segment_sum_rows.launches == before + 1
+    cpu_loss, cpu = grads("cpu")
+    np.testing.assert_allclose(float(card_loss), float(cpu_loss), rtol=1e-4)
+    n_tables = cfg.field.grid.n_levels
+    for i, (g, c) in enumerate(zip(tree_leaves(card), tree_leaves(cpu))):
+        g = g.cpu()
+        assert g.shape == c.shape and torch.isfinite(g).all()
+        limit = 1e-2 if i < n_tables else 1e-3
+        assert float((g - c).abs().max()) <= limit * max(float(c.abs().max()), 1e-12), i
+    new, _, loss = sdf_mode.sdf_fit_step(_to(params, cuda), _to(opt, cuda), pts.to(cuda),
+                                         dist.to(cuda), cfg, idx=idx.to(cuda))
+    assert all(torch.isfinite(t).all() for t in tree_leaves(new)) and float(loss) > 0
+
+
+def _image_inputs():
+    from neus2_tpu_torch.engine import image_mode
+
+    cfg = image_mode.Image2DConfig(n_levels=8, log2_hashmap_size=14, batch_size=1 << 14)
+    params = image_mode.init_image_params(torch.Generator().manual_seed(0), cfg)
+    params["tables"] = [t * 1e3 for t in params["tables"]]
+    g = torch.Generator().manual_seed(2)
+    y, x = torch.meshgrid(torch.linspace(0, 1, 64), torch.linspace(0, 1, 64), indexing="ij")
+    img = torch.stack([x, y, (x * y).sqrt()], -1)
+    pos = torch.rand((cfg.batch_size, 2), generator=g)
+    return image_mode, cfg, params, img, pos
+
+
+def test_image_fit_step_on_card_matches_cpu(cuda):
+    """One image-mode step's table gradients on the card (kernel 4 once a
+    level, dense and hashed levels) against the CPU's ``index_add_`` within
+    1e-5 * max|ref| + 1e-7 (both exact fp32 sums, in other orders), MLP
+    gradients within 1e-4 of their max, two runs bitwise equal."""
+    image_mode, cfg, params, img, pos = _image_inputs()
+    tabs = cfg.level_tables()
+    assert any(r * r <= n for r, n in tabs) and any(r * r > n for r, n in tabs)
+
+    def grads(device):
+        p = _to(params, device)
+        x, im = pos.to(device), img.to(device)
+        return image_mode.value_and_grads(
+            lambda q: image_mode.fit_loss(image_mode.image_forward(q, x, cfg),
+                                          image_mode._bilinear_fetch(im, x), "relative_l2"), p)
+
+    before = segment_tile.segment_sum_planar_rows.launches
+    (loss1, card), (_, again) = grads(cuda), grads(cuda)
+    torch.cuda.synchronize()
+    assert segment_tile.segment_sum_planar_rows.launches == before + 2 * cfg.n_levels
+    cpu_loss, cpu = grads("cpu")
+    np.testing.assert_allclose(float(loss1), float(cpu_loss), rtol=1e-5)
+    for lvl, (g, a, c) in enumerate(zip(card["tables"], again["tables"], cpu["tables"])):
+        assert torch.equal(g, a), lvl
+        assert float((g.cpu() - c).abs().max()) <= 1e-5 * float(c.abs().max()) + 1e-7, lvl
+    for g, c in zip(tree_leaves(card["mlp"]), tree_leaves(cpu["mlp"])):
+        assert float((g.cpu() - c).abs().max()) <= 1e-4 * max(float(c.abs().max()), 1e-12)
+
+
+def test_image_table_grad_kernel_matches_plain_version(cuda):
+    """``level_table_grad`` on the card (sort + kernel 4) against kernel 4's
+    plain version on the same sorted stream, on a dense and a hashed level's
+    shapes (4 x 2^16 updates), within 1e-5 * max|ref| + 1e-7."""
+    from neus2_tpu_torch.engine.image_mode import level_table_grad
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    for rows, hi in ((7232, 7225), (1 << 18, 1 << 18)):
+        idx = torch.randint(0, hi, (4 << 16,), generator=g, device=cuda)
+        upd = torch.randn((4 << 16, 2), generator=g, device=cuda)
+        got = level_table_grad(idx, upd, rows)
+        idx_s, order = torch.sort(idx, stable=True)
+        ref = segment_tile.sorted_segment_sum_tiles_ref(idx_s.cpu(), upd[order].t().cpu(), rows)
+        assert got.shape == (rows, 2)
+        assert float((got.cpu() - ref).abs().max()) <= 1e-5 * float(ref.abs().max()) + 1e-7

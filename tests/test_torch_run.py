@@ -143,8 +143,7 @@ def test_cli_dynamic_scene_writes_transforms_and_meshes(tmp_path, capsys):
         "final.msgpack", "transform_1.txt"]
 
 
-@pytest.mark.parametrize("flags", [["--mode", "sdf"], ["--mode", "image"],
-                                   ["--multichip", "on"]])
+@pytest.mark.parametrize("flags", [["--multichip", "on"]])
 def test_cli_unported_paths_raise(flags, tmp_path):
     with pytest.raises(NotImplementedError):
         run.main(["--scene", "none.json", "--device", "cpu", "--output_dir", str(tmp_path),
