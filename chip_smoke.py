@@ -60,7 +60,14 @@ runs them, with the launch counts set to 0 just before and read just after:
     ``Image2DConfig``'s defaults on a 512^2 PNG for 1,000 steps: kernel 4
     once a level a step (held first against its plain version at each
     level's shape, and one step's table gradients on the card against the
-    CPU), the PSNR.
+    CPU), the PSNR;
+  * ``parallel_phase``: data-parallel training (``neus2_tpu_torch/
+    parallel``) on one rank a visible card through NCCL, at the same width
+    with 4,096 rays a rank: equal draws against single-card steps, the
+    Testbed through ``enable_multichip`` for 200 steps with the error map
+    on (kernel 1 once a step on every rank; device and NCCL ms a step,
+    global rays/s), ZeRO-1 against replicated, and a ZeRO-1 snapshot
+    loaded into a replicated Testbed.
 
 Exits non-zero on any failure; the last line of a successful run is the
 device JSON, the line before it the ``kernels`` JSON.
@@ -132,6 +139,10 @@ IMAGE_RES = 512
 IMAGE_PROFILE_AT = 500
 IMAGE_PSNR_BAR = 26.0  # tests/test_image_mode.py::test_image_fit_converges
 REFINE_ITERS = 5  # mesh_outputs_phase's refine_vertices
+PARALLEL_EQUAL_STEPS = 20  # parallel_phase (a) and (c)
+PARALLEL_STEPS = 200  # parallel_phase (b)
+PARALLEL_PROFILE_AT = 100
+PARALLEL_SNAPSHOT_STEPS = 10  # parallel_phase (d)
 # The batched layouts' index padding past each level's M updates, as the
 # JAX package pads them (round_up(M, 128) + 2 * chunk).
 STREAM_PAD = 4096
@@ -535,23 +546,31 @@ def testbed_phase(torch, st, cfg, hyper, steps: int = TESTBED_STEPS) -> dict:
 
 
 class LossRecorder:
-    """Wraps the Testbed module's ``train_step`` to keep each step's loss
-    tensor (no host sync), leaving the step as it is."""
+    """Wraps the Testbed module's ``train_step`` and ``parallel_train_step``
+    to keep each step's loss tensor (no host sync), leaving the steps as
+    they are."""
+
+    STEPS = ("train_step", "parallel_train_step")
 
     def __init__(self, testbed_module):
-        self.module, self.step, self.losses = testbed_module, testbed_module.train_step, []
+        self.module, self.losses = testbed_module, []
+        self.steps = {name: getattr(testbed_module, name) for name in self.STEPS}
 
     def __enter__(self):
-        def recorded(*args, **kw):
-            state, aux = self.step(*args, **kw)
-            self.losses.append(aux.loss)
-            return state, aux
+        def recorded(step):
+            def run(*args, **kw):
+                state, aux = step(*args, **kw)
+                self.losses.append(aux.loss)
+                return state, aux
+            return run
 
-        self.module.train_step = recorded
+        for name, step in self.steps.items():
+            setattr(self.module, name, recorded(step))
         return self
 
     def __exit__(self, *exc):
-        self.module.train_step = self.step
+        for name, step in self.steps.items():
+            setattr(self.module, name, step)
 
 
 def snapshot_phase(torch, st, tb) -> dict:
@@ -1220,6 +1239,12 @@ def run_testbed(torch, st, tb, profile_at: int | None = None, on_step=None) -> d
                 out["top_device"] = [{"name": e.key[:60], "ms_per_step":
                                       e.self_device_time_total / 1e3 / PROFILE_WINDOW}
                                      for e in evs[:8]]
+                nccl = [e for e in evs if e.key.startswith("nccl")]
+                out["nccl_ms_per_step"] = (sum(e.self_device_time_total for e in nccl)
+                                           / 1e3 / PROFILE_WINDOW)
+                out["nccl_kernels"] = [{"name": e.key[:60], "calls_per_step": e.count / PROFILE_WINDOW,
+                                        "ms_per_step": e.self_device_time_total / 1e3 / PROFILE_WINDOW}
+                                       for e in nccl]
                 prof = None
                 traced_s = time.perf_counter() - t_trace  # the trace's analysis too
             if on_step is not None:
@@ -1956,10 +1981,14 @@ def training_phase(torch, tt, st, cfg, images, cams):
 
 
 def device_events(prof) -> list:
-    """The traced window's device-side events, largest device time first."""
+    """The traced window's device-side events, largest device time first.
+    The profiler also lays each collective's ``nccl:<op>`` annotation on
+    the device timeline, spanning its kernel: left out, so NCCL kernels
+    count once."""
     from torch.autograd import DeviceType
 
-    return sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+    return sorted((e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and not e.key.startswith("nccl:")),
                   key=lambda e: e.self_device_time_total, reverse=True)
 
 
@@ -2020,6 +2049,250 @@ def profile_phase(torch, tt, state, images, cams, cfg, steps: int = PROFILE_STEP
     return out
 
 
+def tree_diff(torch, a, b) -> dict:
+    """Two state trees leaf by leaf -> whether every leaf is bitwise equal,
+    the largest |diff| of an MLP or variance leaf over its max magnitude,
+    and over the hash tables the largest share of a table's entries more
+    than 1e-4 of its max apart and the largest |diff|."""
+    from neus2_tpu_torch.utils.tree import tree_leaves, tree_leaves_with_path
+
+    out = {"bitwise": True, "mlp_max_rel": 0.0, "table_max_share_over": 0.0,
+           "table_max_abs": 0.0}
+    for (path, x), y in zip(tree_leaves_with_path(a), tree_leaves(b), strict=True):
+        if not torch.is_tensor(x):
+            out["bitwise"] = out["bitwise"] and x == y
+            continue
+        if x.shape != y.shape:
+            raise AssertionError(f"{path}: shapes {tuple(x.shape)} {tuple(y.shape)}")
+        out["bitwise"] = out["bitwise"] and torch.equal(x, y)
+        if not x.is_floating_point():  # counters, occupancy bits: equality alone
+            continue
+        d = (x.double() - y.double()).abs()
+        scale = max(float(x.abs().max()), 1e-12)
+        if "hashgrid" in path:
+            share = float((d > 1e-4 * scale).double().mean())
+            out["table_max_share_over"] = max(out["table_max_share_over"], share)
+            out["table_max_abs"] = max(out["table_max_abs"], float(d.max()))
+        else:
+            out["mlp_max_rel"] = max(out["mlp_max_rel"], float(d.max()) / scale)
+    return out
+
+
+def trees_agree(torch, a, b, exact: bool, what: str) -> dict:
+    """``tree_diff``, held bitwise when ``exact``; otherwise to the JAX
+    parity tests' rule for one step from equal states: every MLP and
+    variance leaf within 1e-4 of its max, every hash table on all but 0.5%
+    of its entries (a rounding-level gradient takes an Adam step of any
+    size up to the learning rate)."""
+    d = tree_diff(torch, a, b)
+    ok = d["bitwise"] if exact else d["mlp_max_rel"] <= 1e-4 and d["table_max_share_over"] <= 0.005
+    if not ok:
+        raise AssertionError(f"{what}: {d} ({'bitwise' if exact else 'the parity rule'})")
+    return d
+
+
+def parallel_rank(ctx, cfg, hyper, snap_dir: str) -> dict:
+    """One rank of ``parallel_phase``: (a), (b), (c) and (d) on this rank's
+    card, in one order on every rank (their collectives meet)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from neus2_tpu_torch.api.testbed import Testbed
+    from neus2_tpu_torch.data.synthetic import make_sphere_dataset
+    from neus2_tpu_torch.engine import train as tt
+    from neus2_tpu_torch.ops import segment_tile as st
+    from neus2_tpu_torch.parallel import train as pt
+    from neus2_tpu_torch.utils.tree import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev, exact = ctx.device, ctx.world == 1
+    dataset = make_sphere_dataset(n_views=16, resolution=SCENE_RES, seed=0)
+    images, cams = dataset.to_device(dev)
+    out = {"rank": ctx.rank, "world": ctx.world, "backend": dist.get_backend()}
+
+    def fresh():
+        return tt.occupancy_prior_sweep(tt.init_train_state(cfg, 16, seed=0, device=dev), cfg)
+
+    def whole(state):
+        return [state.params, state.ema_params, state.opt_state]
+
+    # (a) every rank given rank 0's draws: the mean of equal gradients, so
+    # the replicas follow single-card steps.
+    g = torch.Generator(device=dev).manual_seed(7)
+    draws = [tt.sample_step_draws(g, cfg, 16) for _ in range(PARALLEL_EQUAL_STEPS)]
+    state = pt.replicate_state(fresh(), ctx)
+    for d in draws:
+        state, _ = pt.parallel_train_step(state, images, cams, cfg, ctx, draws=d)
+    if ctx.rank == 0:
+        ref = fresh()
+        for d in draws:
+            ref, _ = tt.train_step(ref, images, cams, cfg, draws=d)
+        out["equal_draws"] = {"steps": len(draws), "held_bitwise": exact,
+                              **trees_agree(torch, whole(ref), whole(state), exact, "(a)")}
+        del ref
+    del state, draws
+
+    # (c) ZeRO-1 against replicated with the same per-rank draws: 20 free
+    # steps of each from one start, and each step also from the replicated
+    # state (equal starts, so a world > 1 is held to the one-step rule).
+    g = torch.Generator(device=dev).manual_seed(11)
+    rank_draws = [pt.sample_rank_draws(g, cfg, 16, ctx) for _ in range(PARALLEL_EQUAL_STEPS)]
+    rep, z1 = pt.replicate_state(fresh(), ctx), pt.shard_state_zero1(fresh(), ctx)
+
+    def opt_bytes(opt):
+        return sum(t.numel() * t.element_size() for t in tree_leaves(opt) if torch.is_tensor(t))
+
+    def gathered(s):
+        return s._replace(opt_state=pt.gather_opt_state(s.opt_state, s.params, ctx))
+
+    spec = tree_leaves(pt.table_spec_tree(rep.params, ctx.world))
+    zero1 = {"opt_bytes_replicated": opt_bytes(rep.opt_state),
+             "opt_bytes_zero1": opt_bytes(z1.opt_state),
+             "sharded_table_leaves": sum(spec), "table_leaves": len(rep.params["hashgrid"])}
+    per_step = []
+    for d in rank_draws:
+        same_start = rep._replace(opt_state=pt.shard_opt_state(rep.opt_state, rep.params, ctx))
+        rep, rep_aux = pt.parallel_train_step(rep, images, cams, cfg, ctx, draws=d)
+        one, _ = pt.parallel_train_step(same_start, images, cams, cfg, ctx, zero1=True, draws=d)
+        z1, z1_aux = pt.parallel_train_step(z1, images, cams, cfg, ctx, zero1=True, draws=d)
+        per_step.append(trees_agree(torch, whole(rep), whole(gathered(one)), exact,
+                                    "(c) one step"))
+    free = tree_diff(torch, whole(rep), whole(gathered(z1)))
+    loss_rel = abs(float(rep_aux.loss) - float(z1_aux.loss)) / abs(float(rep_aux.loss))
+    zero1.update(steps=len(rank_draws), held_bitwise=exact,
+                 one_step_table_max_share_over=max(p["table_max_share_over"] for p in per_step),
+                 one_step_mlp_max_rel=max(p["mlp_max_rel"] for p in per_step),
+                 free=free, free_last_loss_rel_diff=loss_rel)
+    if (not free["bitwise"]) if exact else loss_rel > 1e-3:
+        raise AssertionError(f"(c) after {len(rank_draws)} free steps: {free}, loss {loss_rel}")
+    out["zero1_vs_replicated"] = zero1
+    del rep, z1, one, same_start, rank_draws
+
+    # (b) the main path: the Testbed through enable_multichip, each rank its
+    # own draws, 4,096 rays a rank, the error map and its sharpness on.
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pcfg = dataclasses.replace(cfg, n_rays=cfg.n_rays * ctx.world, use_error_map=True,
+                               include_sharpness_in_error=True)
+    tb = Testbed(pcfg, dataclasses.replace(hyper, first_frame_max_training_step=PARALLEL_STEPS),
+                 seed=0, device=dev)
+    if tb.enable_multichip() != ctx.world:
+        raise AssertionError("enable_multichip: the world is not the group's")
+    tb.load_training_data_from_datasets([dataset])
+    n_rays = []
+
+    def read_rays(tb):
+        if tb.training_step % 16 == 0 or tb.training_step == 1:
+            n_rays.append(tb.last_aux.n_rays_counted)
+
+    run = run_testbed(torch, st, tb, PARALLEL_PROFILE_AT, on_step=read_rays)
+    losses = run["loss_reads"]
+    same = True
+    for t in tree_leaves([tb.state.params, list(tb.state.error_map)]):
+        if torch.is_tensor(t):
+            ref = t.clone()
+            dist.broadcast(ref, 0)
+            same = same and torch.equal(ref, t)
+    rays = sum(n_rays) / len(n_rays) * ctx.world  # n_rays_counted is the ranks' mean
+    out["distinct_draws"] = {
+        **{k: run[k] for k in ("steps", "launches", "loss_first", "loss_last", "loss_reads",
+                               "ms_per_step", "host_ms_per_step", "device_ms_per_step",
+                               "nccl_ms_per_step", "nccl_kernels", "device_launches_per_step",
+                               "top_device")},
+        "rays_per_rank": cfg.n_rays, "global_rays_counted_per_step": rays,
+        "global_trained_rays_per_s": rays / run["ms_per_step"] * 1e3,
+        "replicas_bitwise": same, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    if not sum(losses[-2:]) / 2 < losses[0]:
+        raise AssertionError(f"(b): the loss did not fall: {losses}")
+    if not same:
+        raise AssertionError("(b): the replicas' params or error map differ")
+    # The gradient's all-reduce alone, every rank started together: the
+    # collective's own time, without the wait for the slowest rank that the
+    # step's NCCL kernels include.
+    flat = torch.cat([p.reshape(-1) for p in tree_leaves(tb.state.params)])
+    dist.barrier()
+    out["distinct_draws"].update(
+        all_reduce_mb=flat.numel() * 4 / 1e6,
+        all_reduce_ms=cuda_ms(torch, lambda: dist.all_reduce(flat), iters=20, warmup=3))
+    del tb, flat
+
+    # (d) a ZeRO-1 snapshot loaded into a replicated Testbed, and a render.
+    dcfg = dataclasses.replace(cfg, n_rays=cfg.n_rays * ctx.world)
+    dhyper = dataclasses.replace(hyper, first_frame_max_training_step=PARALLEL_SNAPSHOT_STEPS)
+    tz = Testbed(dcfg, dhyper, seed=0, device=dev)
+    tz.enable_multichip(zero1=True)
+    tz.load_training_data_from_datasets([dataset])
+    while tz.frame():
+        pass
+    path = Path(snap_dir) / "zero1.msgpack"
+    tz.save_snapshot(path)
+    tr = Testbed(dcfg, dhyper, seed=0, device=dev)
+    tr.enable_multichip()
+    tr.load_training_data_from_datasets([dataset])
+    tr.load_snapshot(path)
+    tz_whole = tz.state._replace(opt_state=pt.gather_opt_state(tz.state.opt_state,
+                                                               tz.state.params, ctx))
+    parts = lambda s: whole(s) + [list(s.occupancy), list(s.error_map)]  # noqa: E731
+    trees_agree(torch, parts(tz_whole), parts(tr.state), True, "(d) state")
+    renders = [tb_.render(img_idx=0) for tb_ in (tz, tr)]
+    if not all(np.array_equal(np.asarray(x), np.asarray(y)) for x, y in zip(*renders)):
+        raise AssertionError("(d): the renders differ")
+    out["snapshot"] = {"steps": tz.training_step, "bytes": path.stat().st_size,
+                       "leaves_bitwise": True, "render_bitwise": True}
+    return out
+
+
+def parallel_phase(torch) -> dict:
+    """Data-parallel training (``neus2_tpu_torch/parallel``) through
+    ``distributed.launch``: one rank a visible card, NCCL, at
+    ``configs/base.json`` width with 4,096 rays a rank (the global batch
+    grows with the world; one card's step is host-bound, so splitting 4,096
+    rays would not show the collectives' cost):
+
+      (a) every rank given rank 0's draws for 20 steps: the params, EMA and
+          Adam state against 20 single-card ``train_step``s with those
+          draws, bitwise in a world of one, else under the JAX parity rule
+          (``trees_agree``);
+      (b) the Testbed through ``enable_multichip`` for 200 steps, each rank
+          its own draws, the error map and its sharpness weighting on (the
+          main path: kernel 1 once a step on every rank): the loss falls,
+          the params and error map bitwise equal across the ranks, device
+          and NCCL ms a step from a profiler window, the global trained
+          rays/s, peak memory a rank;
+      (c) ZeRO-1 against replicated with the same draws: each of 20 steps
+          from the replicated state, bitwise in a world of one, else under
+          the same rule; and 20 free steps of each from one start, bitwise
+          in a world of one, else the last loss within 1e-3 relative (the
+          one-step rule is not held over free steps: each lets another
+          rounding-level gradient flip an Adam step); the Adam state's
+          bytes a rank for both, and the sharded table leaves;
+      (d) a ZeRO-1 Testbed's snapshot loaded into a replicated Testbed:
+          every leaf and ``render(img_idx=0)`` bitwise.
+
+    The ranks return their results to this process, which prints them; a
+    rank that fails fails the phase."""
+    from neus2_tpu_torch.api.testbed import config_from_json
+    from neus2_tpu_torch.parallel import distributed
+
+    cfg, hyper = config_from_json(REPO / "configs" / "base.json")
+    world = torch.cuda.device_count()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        ranks = distributed.launch(parallel_rank, world, cfg, hyper, d, device="cuda")
+    out = {"world": world, "wall_s": time.perf_counter() - t0, "ranks": ranks}
+    print("parallel_phase " + json.dumps(out), flush=True)
+    for r in ranks:
+        b = r["distinct_draws"]
+        if r["backend"] != "nccl" or not b["launches"] == b["steps"] == PARALLEL_STEPS:
+            raise AssertionError(f"parallel_phase rank {r['rank']}: {r['backend']}, "
+                                 f"{b['launches']} kernel-1 launches in {b['steps']} steps")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2070,6 +2343,7 @@ def main() -> int:
     bf16 = bf16_phase(torch, st, cfg, hyper, tb, prof)
     sdf = sdf_phase(torch, st)
     image = image_phase(torch, st)
+    parallel = parallel_phase(torch)
 
     def entry(name, replaces, rec, rec_f8, launches, extra=()):
         f8_keys = ("max_abs_err", "kernel_ms", "plain_ms", "bound_ms", "library_ms", *extra)
@@ -2089,6 +2363,7 @@ def main() -> int:
          "dynamic_launches": dyn["launches_by_phase"],
          "camera_launches": camera["launches"],
          "lens_launches": lens["launches_all"], "bf16_launches": bf16["launches"],
+         "parallel_launches": [r["distinct_draws"]["launches"] for r in parallel["ranks"]],
          "sdf_launches": sdf["launches"], "sdf_shape": {
              k: sdf["kernel"][k] for k in ("updates_per_level", "max_abs_err", "kernel_ms",
                                            "sort_ms", "plain_ms", "library_ms", "bound_ms")},

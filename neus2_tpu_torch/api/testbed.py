@@ -25,7 +25,17 @@ it on; renders use its envmap and distortion grid.  The dataset's
 Brown-Conrady lens is carried into every render (FTheta, rolling shutter
 and ray files are per-training-image and are not), a mixed-size view
 renders at its true size, and ``image_dtype=torch.float16`` stores the
-training texels in fp16.  Multi-GPU is not ported yet and raises.
+training texels in fp16.
+
+Data-parallel training (``enable_multichip``): inside a process group (one
+rank a card, ``parallel/distributed.py``) every rank holds the whole state
+and trains its share of the batch through ``parallel/train.py``; with
+``zero1`` each rank keeps the field's Adam state for its rows of the
+shardable tables only.  Every decision the loop takes reads values that
+are already reduced over the ranks, so the ranks issue their collectives
+in one order.  Snapshots, meshes and transforms are written by rank 0
+alone, and every rank waits for the write; a ZeRO-1 snapshot gathers the
+optimizer state first, so the file is the one a single card writes.
 """
 
 from __future__ import annotations
@@ -66,6 +76,14 @@ from neus2_tpu_torch.models import delta as delta_mod
 from neus2_tpu_torch.models.field import FieldConfig, freeze_grid_into_base, init_field
 from neus2_tpu_torch.ops.hashgrid import HashGridConfig
 from neus2_tpu_torch.ops.image import sharpen_images, sharpness_maps
+from neus2_tpu_torch.parallel import distributed
+from neus2_tpu_torch.parallel.train import (
+    gather_opt_state,
+    parallel_train_step,
+    replicate_state,
+    shard_opt_state,
+    shard_state_zero1,
+)
 from neus2_tpu_torch.utils.device import resolve_device
 from neus2_tpu_torch.utils.meters import Meters
 from neus2_tpu_torch.utils.optim import OptimConfig, adam_init, plain_adam_init
@@ -228,6 +246,9 @@ class Testbed:
         self.hyper = hyper or Hyperparams()
         self.seed = seed
         self.state = None
+        # The data-parallel world (enable_multichip): None trains alone.
+        self.parallel: distributed.ParallelContext | None = None
+        self.zero1 = False
         self.dataset: NerfDataset | None = None
         self.images = None
         self.cameras = None
@@ -374,6 +395,53 @@ class Testbed:
                                             device=self.device)
             self.state = self.state._replace(cam=cam)
         self.state = occupancy_prior_sweep(self.state, self.config)
+        self._place_state()
+
+    # -- data parallel --------------------------------------------------------
+
+    def enable_multichip(self, world: int | None = None, zero1: bool = False) -> int:
+        """Train data-parallel over the ranks of the process group
+        (``parallel/distributed.py``: ``initialize`` or ``launch``) -> the
+        world size in use.
+
+        ``config.n_rays`` stays the global batch; each rank draws
+        ``n_rays // world`` of it.  ``zero1`` also shards the table
+        gradients' reduction and the field's Adam state over the ranks.
+        Without a process group the world is this process alone (1), as
+        the JAX package's is with one device; ``world``, when given, must
+        be the group's size."""
+        if not torch.distributed.is_initialized():
+            if world not in (None, 1):
+                raise RuntimeError(f"a world of {world} needs a process group: start the "
+                                   "ranks with torchrun or parallel.distributed.launch")
+            self.parallel, self.zero1 = None, False
+            return 1
+        ctx = distributed.context(self.device)
+        if world is not None and world != ctx.world:
+            raise ValueError(f"world {world} asked for; the process group has {ctx.world}")
+        self.parallel, self.zero1 = ctx, bool(zero1)
+        self._place_state()
+        return ctx.world
+
+    @property
+    def world(self) -> int:
+        return 1 if self.parallel is None else self.parallel.world
+
+    def _place_state(self):
+        """Rank 0's state on every rank, with the field's Adam state cut to
+        this rank's rows under ZeRO-1."""
+        if self.parallel is None or self.state is None:
+            return
+        place = shard_state_zero1 if self.zero1 else replicate_state
+        self.state = place(self.state, self.parallel)
+
+    def _on_primary(self, write):
+        """``write()`` on the primary process alone (its result, None
+        elsewhere), then every rank of a data-parallel run waits for it."""
+        out = write() if distributed.is_primary() else None
+        if self.parallel is not None:
+            distributed.barrier()
+        return out
 
     # -- scalars --------------------------------------------------------------
 
@@ -475,11 +543,19 @@ class Testbed:
                 state = occupancy_update(state, cfg)
             if cfg.use_error_map and emap.should_rebuild(self.training_step):
                 state = rebuild_error_cdf(state)
+        depths = self.depths if cfg.depth_supervision_lambda > 0.0 else None
         with self.meters.scope("training"):
-            state, aux = train_step(
-                state, self.images, self.cameras, cfg, train_canonical=self.train_canonical,
-                train_delta=self.train_delta, use_delta=self.use_delta,
-                depths=self.depths if cfg.depth_supervision_lambda > 0.0 else None)
+            if self.parallel is None:
+                state, aux = train_step(
+                    state, self.images, self.cameras, cfg, train_canonical=self.train_canonical,
+                    train_delta=self.train_delta, use_delta=self.use_delta, depths=depths)
+            else:
+                per_rank = dataclasses.replace(cfg, n_rays=max(1, cfg.n_rays // self.world))
+                state, aux = parallel_train_step(
+                    state, self.images, self.cameras, per_rank, self.parallel,
+                    train_canonical=self.train_canonical, train_delta=self.train_delta,
+                    use_delta=self.use_delta, depths=depths,
+                    zero1=self.zero1 and self.train_canonical)
         self.state = state
         self.training_step += 1
         # 16-step fetch (reference get_loss_scalar, testbed.cu:2714), and on
@@ -588,6 +664,9 @@ class Testbed:
             params["sdf_mlp"] = fresh["sdf_mlp"]
             ema["sdf_mlp"] = tree_map(torch.clone, fresh["sdf_mlp"])
             state = state._replace(params=params, ema_params=ema)
+        if self.zero1:
+            state = state._replace(opt_state=shard_opt_state(state.opt_state, state.params,
+                                                             self.parallel))
         self.state = state
         self.training_step = 0
         self.train_canonical = False
@@ -708,10 +787,14 @@ class Testbed:
         """Write the effective rigid transform as three rows ``R_i0 R_i1
         R_i2 t_i`` (reference save_transform, testbed.cu:3118-3141)."""
         acc = {k: v.detach().cpu().numpy() for k, v in self.effective_acc.items()}
-        with open(path, "w") as f:
-            for i in range(3):
-                f.write(" ".join(f"{v:.8f}" for v in acc["rotation"][i])
-                        + f" {acc['transition'][i]:.8f}\n")
+
+        def write():
+            with open(path, "w") as f:
+                for i in range(3):
+                    f.write(" ".join(f"{v:.8f}" for v in acc["rotation"][i])
+                            + f" {acc['transition'][i]:.8f}\n")
+
+        self._on_primary(write)
 
     def _image_size(self, i: int) -> tuple[int, int]:
         """Training view i's true (w, h)."""
@@ -819,7 +902,13 @@ class Testbed:
         382): OBJ or, by suffix, PLY with sRGB vertex colours; 1-ring vertex
         normals; vertices in the dataset's space.  ``aabb`` ((lo3), (hi3))
         crops where the grid is sampled; the field is always queried in the
-        scene's warp frame.  Returns (verts, tris) in warped coordinates."""
+        scene's warp frame.  Returns (verts, tris) in warped coordinates
+        (None on a rank other than 0 of a data-parallel run)."""
+        return self._on_primary(lambda: self._save_mesh(
+            path, resolution, thresh, with_colors, keep_largest_component, with_normals, aabb))
+
+    def _save_mesh(self, path, resolution, thresh, with_colors, keep_largest_component,
+                   with_normals, aabb):
         from neus2_tpu_torch.engine.mesh import (
             extract_mesh, largest_component, save_mesh_obj, save_mesh_ply,
             vertex_colors, vertex_normals,
@@ -860,21 +949,31 @@ class Testbed:
         each frame starts afresh (testbed.cu:3180).  The adaptive batch
         bucket is host state no snapshot holds, in either package.  The
         file is written beside ``path`` and then renamed over it, so a
-        write cut short never leaves a broken resume point."""
-        payload = {
-            "leaves": interop.state_to_pathdict(self.state, incremental),
-            "format": "pathdict-v1",
-            "incremental": bool(incremental),
-            "meta": {
-                "training_step": np.int32(self.training_step),
-                "frame": np.int32(self.current_training_time_frame),
-                "aabb_scale": np.int32(self.config.aabb_scale),
-            },
-        }
+        write cut short never leaves a broken resume point.  A data-parallel
+        run writes from rank 0 (every rank calls this: under ZeRO-1 the
+        optimizer state is gathered first)."""
+        state = self.state
+        if self.zero1 and not incremental:
+            state = state._replace(opt_state=gather_opt_state(state.opt_state, state.params,
+                                                              self.parallel))
         path = Path(path)
         tmp = path.with_name(path.name + ".tmp")
-        tmp.write_bytes(msgpack_codec.packb(payload))
-        os.replace(tmp, path)
+
+        def write():
+            payload = {
+                "leaves": interop.state_to_pathdict(state, incremental),
+                "format": "pathdict-v1",
+                "incremental": bool(incremental),
+                "meta": {
+                    "training_step": np.int32(self.training_step),
+                    "frame": np.int32(self.current_training_time_frame),
+                    "aabb_scale": np.int32(self.config.aabb_scale),
+                },
+            }
+            tmp.write_bytes(msgpack_codec.packb(payload))
+            os.replace(tmp, path)
+
+        self._on_primary(write)
 
     def load_snapshot(self, path: str | Path):
         """Restore a native snapshot, from either package: every leaf the
@@ -882,7 +981,8 @@ class Testbed:
         lacks keeps its current value (named once).  A file without the
         step generator's state (one the JAX package wrote) reseeds the
         generator from the Testbed's seed.  The counters and the dynamic
-        phase flags follow the file's meta block."""
+        phase flags follow the file's meta block.  A data-parallel run loads
+        it on every rank and places it as ``enable_multichip`` does."""
         payload = msgpack_codec.unpackb(Path(path).read_bytes())
         if isinstance(payload, dict) and "snapshot" in payload:
             return self.load_reference_snapshot(path)
@@ -890,8 +990,13 @@ class Testbed:
             raise ValueError(
                 f"{path}: not a path-keyed ('pathdict-v1') snapshot; the legacy "
                 "positional-list format is read only by the JAX package")
+        placed = self.state is not None
+        like = self._state_or_fresh()
+        if self.zero1 and placed:  # the whole optimizer state, as the file holds it
+            like = like._replace(opt_state=gather_opt_state(like.opt_state, like.params,
+                                                            self.parallel))
         state, missing = interop.state_from_pathdict(
-            payload["leaves"], self._state_or_fresh(), bool(payload.get("incremental", False)))
+            payload["leaves"], like, bool(payload.get("incremental", False)))
         if ".generator" in missing:
             missing.remove(".generator")
             state = state._replace(
@@ -902,6 +1007,7 @@ class Testbed:
             print(f"load_snapshot: {len(missing)} state fields absent from the snapshot "
                   f"kept at current values (e.g. {missing[:3]})", flush=True)
         self.state = state
+        self._place_state()
         meta = payload.get("meta", {})
         self.training_step = int(meta.get("training_step", 0))
         self.current_training_time_frame = int(meta.get("frame", 0))
@@ -933,6 +1039,7 @@ class Testbed:
         if out["acc"] is not None:
             changes["acc"] = tree_map(like, st.acc, out["acc"])
         self.state = st._replace(**changes)
+        self._place_state()
         self.training_step = out["training_step"]
         self.loss_scalar = out["loss"]
         self._restore_phase_flags()

@@ -127,6 +127,21 @@ def rebuild_cdf(state: ErrorMapState) -> ErrorMapState:
     return state._replace(error_map=torch.zeros_like(state.error_map), cdf=cdf / cdf[-1])
 
 
+def blocked_cumsum(x: torch.Tensor, block: int = 4096) -> torch.Tensor:
+    """The JAX package's two-level prefix sum of a 1-D tensor: cumulative
+    sums within blocks of ``block``, plus each block's exclusive prefix of
+    the block totals (``torch.cumsum`` up to the summation order)."""
+    (n,) = x.shape
+    if n <= block:
+        return torch.cumsum(x, 0)
+    k = -(-n // block)
+    xp = torch.nn.functional.pad(x, (0, k * block - n)).reshape(k, block)
+    inner = torch.cumsum(xp, 1)
+    totals = inner[:, -1]
+    offsets = torch.cumsum(totals, 0) - totals
+    return (inner + offsets[:, None]).reshape(-1)[:n]
+
+
 def sample_pixels(state: ErrorMapState, u: torch.Tensor, jitter: torch.Tensor,
                   n_images: int) -> tuple[torch.Tensor, torch.Tensor]:
     """(img_idx (C,), uv (C, 2)) from the CDF at uniforms ``u`` (C,),

@@ -31,8 +31,7 @@ import torch
 from neus2_tpu_torch.engine.sdf_mode import ADAM_EPS, fit_loss
 from neus2_tpu_torch.models.mlp import apply_mlp, init_mlp
 from neus2_tpu_torch.ops.image import psnr
-from neus2_tpu_torch.ops.scatter import segment_dense_sum
-from neus2_tpu_torch.ops.segment_tile import segment_sum_sorttile
+from neus2_tpu_torch.ops.scatter import level_table_grad
 from neus2_tpu_torch.utils.device import constant, resolve_device
 from neus2_tpu_torch.utils.optim import plain_adam_apply, plain_adam_init, value_and_grads
 
@@ -102,15 +101,6 @@ def _level_corners(pos: torch.Tensor, res: int, rows: int):
         wy = frac[:, 1] if dy else 1.0 - frac[:, 1]
         out.append((_corner_index(corner, res, rows), wx * wy))
     return out
-
-
-def level_table_grad(idx: torch.Tensor, upd: torch.Tensor, rows: int) -> torch.Tensor:
-    """One level's table gradient ``zeros((rows, F)).index_add_(0, idx,
-    upd)``: ``index_add_`` on the CPU; on the card the stable sort and
-    kernel 4, summing fp32 exactly in a fixed order."""
-    if upd.device.type == "cpu":
-        return segment_dense_sum(idx, upd, rows, method="scatter")
-    return segment_sum_sorttile(idx, upd, rows, row_block=8, pack=False)
 
 
 class _Hash2D(torch.autograd.Function):

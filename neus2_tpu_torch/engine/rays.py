@@ -172,6 +172,21 @@ def rays_from_pixels(cameras: Cameras, images: torch.Tensor,
     return origins, dirs, rgba.to(torch.float32), uv
 
 
+def sample_training_rays(cameras: Cameras, images: torch.Tensor, n_rays: int,
+                         generator: torch.Generator | None = None,
+                         img_idx: torch.Tensor | None = None, uv: torch.Tensor | None = None):
+    """Uniform training rays and their RGBA targets (the reference's uniform
+    sampler, testbed_nerf.cu:1263): ``n_rays`` images and uvs drawn from
+    ``generator``, or the ``img_idx`` (B,) and ``uv`` (B, 2) given ->
+    (origins (B,3), dirs (B,3), rgba (B,4), img_idx (B,))."""
+    if img_idx is None:
+        kw = dict(generator=generator, device=generator.device)
+        img_idx = torch.randint(0, cameras.n_images, (n_rays,), **kw)
+        uv = torch.rand((n_rays, 2), **kw)
+    origins, dirs, rgba, _ = rays_from_pixels(cameras, images, img_idx, uv)
+    return origins, dirs, rgba, img_idx
+
+
 def rays_for_image(cameras: Cameras, img_idx: int):
     """All pixel-centre rays of one image at ``resolution``, (H*W, 3) each."""
     w, h = cameras.resolution

@@ -563,6 +563,76 @@ def phase_config(config: TrainConfig, train_canonical: bool = True,
     return config
 
 
+def step_diff(state: TrainState, config: TrainConfig, train_canonical: bool = True,
+              train_delta: bool = False) -> dict:
+    """The param groups a step of this phase differentiates: the field
+    when the canonical field trains, the delta when it does, and the
+    camera leaves in the loss (``cam_leaves_in_loss``) in canonical
+    phases; the field alone when neither trains (the loss, no update)."""
+    cam_keys = cam_leaves_in_loss(config) if train_canonical else ()
+    diff = {}
+    if train_canonical:
+        diff["params"] = state.params
+    if train_delta:
+        diff["delta"] = state.delta
+    if cam_keys:
+        diff["cam"] = {k: state.cam[k] for k in cam_keys}
+    if not diff:
+        diff["params"] = state.params
+    return diff
+
+
+def field_adam(state: TrainState, grads: Params, config: TrainConfig):
+    """The field's tcnn Adam on the whole tree -> (new params, new opt state)."""
+    updates, new_opt = adam_update(grads, state.opt_state, state.params, config.optim)
+    return tree_map(lambda p, u: p + u, state.params, updates), new_opt
+
+
+def apply_grads(state: TrainState, grads: dict, extras: StepExtras | None,
+                config: TrainConfig, train_canonical: bool = True, train_delta: bool = False,
+                field_update: Callable = field_adam) -> TrainState:
+    """Everything a step does after its gradients: the field's Adam
+    (``field_update``: ``field_adam``, or the data-parallel ZeRO-1 update
+    on a row shard), the delta's and the camera group's Adam, the error-map
+    deposit, the EMA and the counters.  ``grads`` has ``step_diff``'s
+    structure; ``extras`` is None without the error map."""
+    new_params, new_opt = state.params, state.opt_state
+    if train_canonical:
+        new_params, new_opt = field_update(state, grads["params"], config)
+    new_delta, new_delta_opt = state.delta, state.delta_opt_state
+    if train_delta:
+        updates, new_delta_opt = plain_adam_update(grads["delta"], state.delta_opt_state,
+                                                   config.delta_lr)
+        new_delta = tree_map(lambda p, u: p + u, state.delta, updates)
+    new_cam, new_cam_opt = state.cam, state.cam_opt_state
+    if "cam" in grads:
+        # The whole group steps with one count; the leaves out of the loss
+        # take zero gradients, as they get in the JAX package.
+        cam_grads = {k: grads["cam"][k] if k in grads["cam"] else torch.zeros_like(v)
+                     for k, v in state.cam.items()}
+        updates, new_cam_opt = plain_adam_update(cam_grads, state.cam_opt_state,
+                                                 config.cam_lr, eps=1e-8)
+        new_cam = tree_map(lambda p, u: p + u, state.cam, updates)
+    new_emap = state.error_map
+    if config.use_error_map:
+        new_emap = emap.deposit(state.error_map, extras.img_idx, extras.uv, extras.ray_loss)
+        if extras.sharpness_grid is not None:
+            new_emap = new_emap._replace(sharpness_grid=extras.sharpness_grid)
+    new_ema = ema_update(state.ema_params, new_params, config.ema_decay)
+    return state._replace(
+        params=new_params,
+        ema_params=new_ema,
+        opt_state=new_opt,
+        delta=new_delta,
+        delta_opt_state=new_delta_opt,
+        cam=new_cam,
+        cam_opt_state=new_cam_opt,
+        error_map=new_emap,
+        step=state.step + 1,
+        frame_step=state.frame_step + 1,
+    )
+
+
 def train_step(state: TrainState, images: torch.Tensor, cameras: Cameras,
                config: TrainConfig, draws: StepDraws | None = None,
                train_canonical: bool = True, train_delta: bool = False,
@@ -580,58 +650,10 @@ def train_step(state: TrainState, images: torch.Tensor, cameras: Cameras,
     config = phase_config(config, train_canonical, train_delta)
     if draws is None:
         draws = sample_step_draws(state.generator, config, cameras.n_images)
-    cam_keys = cam_leaves_in_loss(config) if train_canonical else ()
-    diff = {}
-    if train_canonical:
-        diff["params"] = state.params
-    if train_delta:
-        diff["delta"] = state.delta
-    if cam_keys:
-        diff["cam"] = {k: state.cam[k] for k in cam_keys}
-    if not diff:
-        diff["params"] = state.params  # neither trains: the loss alone, no update
+    diff = step_diff(state, config, train_canonical, train_delta)
     grads, aux, extras = loss_and_grads(diff, state, images, cameras, draws, config,
                                         use_delta or train_delta, depths)
-    new_params, new_opt = state.params, state.opt_state
-    if train_canonical:
-        updates, new_opt = adam_update(grads["params"], state.opt_state, state.params,
-                                       config.optim)
-        new_params = tree_map(lambda p, u: p + u, state.params, updates)
-    new_delta, new_delta_opt = state.delta, state.delta_opt_state
-    if train_delta:
-        updates, new_delta_opt = plain_adam_update(grads["delta"], state.delta_opt_state,
-                                                   config.delta_lr)
-        new_delta = tree_map(lambda p, u: p + u, state.delta, updates)
-    new_cam, new_cam_opt = state.cam, state.cam_opt_state
-    if cam_keys:
-        # The whole group steps with one count; the leaves out of the loss
-        # take zero gradients, as they get in the JAX package.
-        cam_grads = {k: grads["cam"][k] if k in grads["cam"] else torch.zeros_like(v)
-                     for k, v in state.cam.items()}
-        updates, new_cam_opt = plain_adam_update(cam_grads, state.cam_opt_state,
-                                                 config.cam_lr, eps=1e-8)
-        new_cam = tree_map(lambda p, u: p + u, state.cam, updates)
-    new_emap = state.error_map
-    if config.use_error_map:
-        new_emap = emap.deposit(state.error_map, extras.img_idx, extras.uv, extras.ray_loss)
-        if extras.sharpness_grid is not None:
-            new_emap = new_emap._replace(sharpness_grid=extras.sharpness_grid)
-    new_ema = ema_update(state.ema_params, new_params, config.ema_decay)
-    return (
-        state._replace(
-            params=new_params,
-            ema_params=new_ema,
-            opt_state=new_opt,
-            delta=new_delta,
-            delta_opt_state=new_delta_opt,
-            cam=new_cam,
-            cam_opt_state=new_cam_opt,
-            error_map=new_emap,
-            step=state.step + 1,
-            frame_step=state.frame_step + 1,
-        ),
-        aux,
-    )
+    return apply_grads(state, grads, extras, config, train_canonical, train_delta), aux
 
 
 def rebuild_error_cdf(state: TrainState) -> TrainState:

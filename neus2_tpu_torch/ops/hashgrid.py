@@ -1,10 +1,17 @@
-"""Multiresolution hash-grid configuration and corner indexing
-(port of ``neus2_tpu/ops/hashgrid.py``; reference tcnn grid.h:118-155,
-2427-2440).
+"""Multiresolution hash-grid configuration, corner indexing and the plain
+encoding over one flat table (port of ``neus2_tpu/ops/hashgrid.py``;
+reference tcnn grid.h:118-155, 2427-2440).
 
 Contract kept from the reference: the lookup scale is ``resolution - 1``
 (the NeuS2 quirk), positions are offset by +0.5 before flooring, a level is
 dense-indexed while it fits its table and spatially hashed otherwise.
+
+The field trains through ``ops/hashgrid_fast.py`` (per-level tables, the
+analytic Jacobian); ``hashgrid_encode`` is the JAX package's plain
+encoding, differentiable in the table and the positions.  Its table
+gradient is summed in a fixed order (``ops/scatter.py::level_table_grad``:
+kernel 4 on the card), not by the atomic adds of torch's own backward of a
+gather.  ``init_hashgrid`` is the port's own seeded draw.
 """
 
 from __future__ import annotations
@@ -14,6 +21,8 @@ import math
 
 import numpy as np
 import torch
+
+from neus2_tpu_torch.ops.scatter import level_table_grad
 
 _PRIMES = (1, 2654435761, 805459861)
 _U32 = 0xFFFFFFFF
@@ -127,3 +136,65 @@ def _corner_indices(
         + pos_grid[..., 2] * resolution * resolution
     )
     return idx % size
+
+
+def init_hashgrid(generator: torch.Generator, config: HashGridConfig,
+                  device="cpu") -> torch.Tensor:
+    """The flat (n_table_entries, F) table ~ U(-1e-4, 1e-4) (tcnn
+    initialize_params), drawn on the generator's device."""
+    shape = (config.n_table_entries, config.n_features_per_level)
+    draw = torch.rand(shape, generator=generator, device=generator.device)
+    return (draw * 2e-4 - 1e-4).to(device)
+
+
+class _RowGather(torch.autograd.Function):
+    """``table[idx]``, whose table gradient is summed in a fixed order."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = table.shape[0]
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, ct):
+        (idx,) = ctx.saved_tensors
+        return level_table_grad(idx, ct.to(torch.float32), ctx.rows), None
+
+
+def hashgrid_encode(table: torch.Tensor, positions: torch.Tensor, config: HashGridConfig,
+                    valid_level: int | None = None,
+                    max_level: torch.Tensor | None = None) -> torch.Tensor:
+    """Trilinear multiresolution features of (B, 3) warped positions from
+    the flat (n_table_entries, F) table -> (B, L * F).
+
+    Levels above ``valid_level`` output 0 (grid.h:198); with ``max_level``
+    (B,) fractions in [0, 1], level l is 0 where l >= max_level * L
+    (grid.h:217-240).  All levels' corners are gathered at once."""
+    resolutions, scales, offsets, sizes, use_hash = config.level_tables()
+    corners = [tuple((c >> d) & 1 for d in range(3)) for c in range(8)]
+    idx, weights = [], []
+    for lvl in range(config.n_levels):
+        pos = positions * scales[lvl] + 0.5
+        pos_floor = torch.floor(pos)
+        frac = pos - pos_floor
+        pos_grid = pos_floor.to(torch.int64)
+        for corner in corners:
+            co = torch.tensor(corner, device=positions.device)
+            weights.append(torch.where(co == 1, frac, 1.0 - frac).prod(-1))
+            idx.append(offsets[lvl] + _corner_indices(pos_grid + co, resolutions[lvl],
+                                                      sizes[lvl], use_hash[lvl]))
+    vals = _RowGather.apply(table, torch.cat(idx))
+    vals = vals.view(config.n_levels, 8, positions.shape[0], table.shape[1])
+    outs = []
+    for lvl in range(config.n_levels):
+        feat = torch.zeros_like(vals[lvl, 0])
+        for c in range(8):
+            feat = feat + weights[lvl * 8 + c][:, None] * vals[lvl, c]
+        if valid_level is not None:
+            feat = feat * (1.0 if lvl <= valid_level else 0.0)
+        if max_level is not None:
+            per_sample = (lvl < max_level * config.n_levels + 1e-3).to(table.dtype)
+            feat = feat * per_sample[:, None]
+        outs.append(feat)
+    return torch.cat(outs, -1)

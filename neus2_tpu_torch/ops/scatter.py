@@ -13,6 +13,8 @@ one of four methods, dispatched as in the JAX package:
 
 ``segment_dense_sum_multi`` does all hash-grid levels at once: on the CPU
 the exact scatter, elsewhere ("packed") the all-levels kernel 1.
+``level_table_grad`` is the exact fp32 sum of one table (kernel 4 on the
+card) that the image mode's and ``hashgrid_encode``'s backward take.
 """
 
 from __future__ import annotations
@@ -65,6 +67,17 @@ def segment_dense_sum(idx: torch.Tensor, upd: torch.Tensor, n_rows: int,
     if method == "sort":
         return _sort_method(idx, upd, n_rows)
     raise ValueError(f"unknown segment-sum method {method!r}")
+
+
+def level_table_grad(idx: torch.Tensor, upd: torch.Tensor, rows: int) -> torch.Tensor:
+    """A table gradient ``zeros((rows, F)).index_add_(0, idx, upd)`` summed
+    in a fixed order (``rows`` a multiple of 8): ``index_add_`` on the CPU;
+    on the card the stable sort and kernel 4, exact in fp32.  (Torch's
+    backward of a gather adds with float atomics on the card, so its sums
+    change from run to run.)"""
+    if upd.device.type == "cpu":
+        return segment_dense_sum(idx, upd, rows, method="scatter")
+    return segment_sum_sorttile(idx, upd, rows, row_block=8, pack=False)
 
 
 def segment_dense_sum_multi(idx_list, upd_list, sizes,

@@ -1,11 +1,15 @@
-"""Real spherical-harmonics direction encoding up to degree 4
-(port of ``neus2_tpu/ops/sh.py``; reference tcnn spherical_harmonics.h).
+"""Real spherical-harmonics direction encoding up to degree 4, and the
+other small tcnn encodings (port of ``neus2_tpu/ops/sh.py``; reference
+tcnn spherical_harmonics.h, frequency.h, oneblob.h, triangle_wave.h and
+the [MOD] HannWindowFrequency).
 
 The input direction is warped into [0,1]^3 and unwarped via x = 2*in - 1.
 Degrees above 4 are not used by any configuration of the port yet.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -49,3 +53,37 @@ def sh_encode(dirs_warped: torch.Tensor, degree: int) -> torch.Tensor:
 
 def sh_output_dim(degree: int) -> int:
     return degree * degree
+
+
+def frequency_encode(x: torch.Tensor, n_frequencies: int) -> torch.Tensor:
+    """NeRF positional encoding [sin, cos](2^k pi x): (..., D) -> (..., D * K * 2)."""
+    freqs = 2.0 ** torch.arange(n_frequencies, dtype=x.dtype, device=x.device) * math.pi
+    ang = x[..., None] * freqs  # (..., D, K)
+    return torch.stack([torch.sin(ang), torch.cos(ang)], -1).reshape(*x.shape[:-1], -1)
+
+
+def hann_window_frequency_encode(x: torch.Tensor, n_frequencies: int,
+                                 alpha: float | torch.Tensor) -> torch.Tensor:
+    """The frequency encoding with band k weighted by the Hann window
+    0.5 (1 - cos(pi clip(alpha - k, 0, 1))) (coarse-to-fine annealing)."""
+    k = torch.arange(n_frequencies, dtype=x.dtype, device=x.device)
+    w = 0.5 * (1.0 - torch.cos(math.pi * torch.clamp(alpha - k, 0.0, 1.0)))
+    ang = x[..., None] * (2.0**k * math.pi)
+    out = torch.stack([torch.sin(ang), torch.cos(ang)], -1) * w[None, :, None]
+    return out.reshape(*x.shape[:-1], -1)
+
+
+def oneblob_encode(x: torch.Tensor, n_bins: int) -> torch.Tensor:
+    """OneBlob: a Gaussian blob (sigma 1 / n_bins) a dimension over
+    ``n_bins`` bin centres, divided by ``n_bins``."""
+    centers = (torch.arange(n_bins, dtype=x.dtype, device=x.device) + 0.5) / n_bins
+    sigma = 1.0 / n_bins
+    d = x[..., None] - centers
+    out = torch.exp(-0.5 * (d / sigma) ** 2) / (sigma * math.sqrt(2.0 * math.pi))
+    return out.reshape(*x.shape[:-1], -1) / n_bins
+
+
+def trianglewave_encode(x: torch.Tensor, n_frequencies: int) -> torch.Tensor:
+    """TriangleWave: |2 (v - floor(v + 0.5))| at v = 2^k x."""
+    v = x[..., None] * 2.0 ** torch.arange(n_frequencies, dtype=x.dtype, device=x.device)
+    return torch.abs(2.0 * (v - torch.floor(v + 0.5))).reshape(*x.shape[:-1], -1)

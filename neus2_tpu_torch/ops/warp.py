@@ -7,6 +7,7 @@ from typing import NamedTuple
 
 import torch
 
+from neus2_tpu_torch.constants import MAX_CONE_STEPSIZE, MIN_CONE_STEPSIZE
 from neus2_tpu_torch.utils.device import constant
 
 
@@ -42,6 +43,10 @@ class AABB(NamedTuple):
         return tmin, tmax
 
 
+def unit_aabb() -> AABB:
+    return AABB((0.0,) * 3, (1.0,) * 3)
+
+
 def scene_aabb(aabb_scale: float) -> AABB:
     """The reference's scene box: the unit cube inflated around (0.5,)*3."""
     half = 0.5 * float(aabb_scale)
@@ -52,9 +57,23 @@ def warp_position(pos: torch.Tensor, aabb: AABB) -> torch.Tensor:
     return aabb.relative_pos(pos)
 
 
+def unwarp_position(pos: torch.Tensor, aabb: AABB) -> torch.Tensor:
+    lo, hi = aabb._lo_hi(pos)
+    return lo + pos * (hi - lo)
+
+
 def warp_direction(direction: torch.Tensor) -> torch.Tensor:
     return (direction + 1.0) * 0.5
 
 
 def unwarp_direction(direction: torch.Tensor) -> torch.Tensor:
     return direction * 2.0 - 1.0
+
+
+def warp_dt(dt: torch.Tensor) -> torch.Tensor:
+    """dt normalized by the cone step sizes (testbed_nerf.cu:470-492)."""
+    return (dt - MIN_CONE_STEPSIZE) / (MAX_CONE_STEPSIZE - MIN_CONE_STEPSIZE)
+
+
+def unwarp_dt(dt: torch.Tensor) -> torch.Tensor:
+    return dt * (MAX_CONE_STEPSIZE - MIN_CONE_STEPSIZE) + MIN_CONE_STEPSIZE

@@ -39,7 +39,16 @@ The other modes take ``--scene`` as their input:
   python -m neus2_tpu_torch.run --mode image --scene image.png
       fits rgb(x, y) (``engine/image_mode.py``; 1,000 steps by default)
       and writes logs/image_eval.json (PSNR) and image_recon.png.
-Multi-GPU is not ported yet.
+
+Data-parallel training (``--multichip on``, or ``auto`` with more than one
+card): one rank a card, each training its share of the ``--n_rays``
+global batch (``parallel/train.py``; ``--zero1`` shards the hash tables'
+optimizer state).  Started plainly, the CLI spawns one rank a card itself;
+under ``torchrun`` each process is a rank (``--device cpu`` trains on
+gloo); ``--multihost`` joins a world given by ``--coordinator host:port``,
+``--num_processes`` and ``--process_id``.  Rank 0 writes every file:
+  torchrun --standalone --nproc_per_node 2 -m neus2_tpu_torch.run \\
+      --scene <json> --device cpu --multichip on [--zero1]
 """
 
 from __future__ import annotations
@@ -130,29 +139,66 @@ def parse_args(argv=None):
                         "after the scene")
     p.add_argument("--save_snapshot_every", type=int, default=0)
     p.add_argument("--no_train", action="store_true")
-    p.add_argument("--multichip", choices=("auto", "on", "off"), default="auto")
+    p.add_argument("--multichip", choices=("auto", "on", "off"), default="auto",
+                   help="data-parallel training, one rank a card (auto: on with more than "
+                        "one card)")
+    p.add_argument("--zero1", action="store_true",
+                   help="multichip: shard the hash tables' gradient reduction and optimizer "
+                        "state over the ranks (ZeRO-1)")
+    p.add_argument("--multihost", action="store_true",
+                   help="join a multi-process world given by --coordinator, --num_processes "
+                        "and --process_id (one process a card); rank 0 writes every file")
+    p.add_argument("--coordinator", default=None, help="multihost: rank 0's host:port")
+    p.add_argument("--num_processes", type=int, default=None)
+    p.add_argument("--process_id", type=int, default=None)
     return p.parse_args(argv)
 
 
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_args(argv)
-    if args.multichip == "on":
-        raise NotImplementedError("multi-GPU training is not ported yet")
-
     out = Path(args.output_dir) / args.name
     if args.mode == "sdf":
         return main_sdf(args, out)
     if args.mode == "image":
         return main_image(args, out)
 
+    from neus2_tpu_torch.parallel import distributed
+
+    world = (args.coordinator, args.num_processes, args.process_id) if args.multihost else ()
+    started = distributed.initialize(*world, device=args.device)
+    if not torch.distributed.is_initialized() and args.multichip != "off":
+        n = torch.cuda.device_count() if torch.device(args.device).type == "cuda" else 1
+        if n > 1 or args.multichip == "on":
+            distributed.launch(_main_rank, n, argv, device=args.device)
+            return None
+    try:
+        return main_nerf(args, out)
+    finally:
+        if started:
+            torch.distributed.destroy_process_group()
+
+
+def _main_rank(ctx, argv) -> None:
+    """One rank of a run ``main`` spawned."""
+    main(argv)
+
+
+def main_nerf(args, out: Path):
+    """The static and dynamic NeuS2 mode: train, then rank 0 writes the
+    outputs the flags ask for -> the Testbed."""
     from neus2_tpu_torch.api.testbed import Hyperparams, Testbed, config_from_json
     from neus2_tpu_torch.engine.train import TrainConfig
+    from neus2_tpu_torch.parallel import distributed
 
     for sub in ("checkpoints", "mesh", "logs"):
         (out / sub).mkdir(parents=True, exist_ok=True)
     log_path = out / "log.txt"
+    primary = distributed.is_primary()
 
     def log(msg: str):
+        if not primary:  # the ranks train alike; rank 0 reports
+            return
         print(msg, flush=True)
         with open(log_path, "a") as f:
             f.write(msg + "\n")
@@ -181,6 +227,11 @@ def main(argv=None):
 
     tb = Testbed(config=config, hyper=hyper, seed=args.seed, device=args.device,
                  image_dtype=torch.float16 if args.fp16_images else None)
+    if torch.distributed.is_initialized() and args.multichip != "off":
+        n = tb.enable_multichip(zero1=args.zero1)
+        log(f"multichip: data-parallel over {n} ranks ({config.n_rays} rays/batch global, "
+            f"{max(1, config.n_rays // n)} a rank" + (", zero1 table sharding" if args.zero1
+                                                      else "") + ")")
     log(f"loading scene {args.scene}")
     try:
         tb.load_training_data(args.scene)
@@ -192,12 +243,14 @@ def main(argv=None):
     if args.snapshot:
         tb.load_snapshot(args.snapshot)
         log(f"restored snapshot {args.snapshot}")
-    if args.eval_per_frame:
+    if args.eval_per_frame and primary:
         tb.on_frame_complete = _make_per_frame_eval(log)
 
     if not args.no_train:
         train(tb, args, out, log)
     tb.prepare_for_test()
+    if not primary:  # the outputs below are rank 0's
+        return tb
 
     if args.grid_stats:
         from neus2_tpu_torch.utils.introspect import format_level_stats, hashgrid_level_stats

@@ -894,3 +894,70 @@ def test_image_table_grad_kernel_matches_plain_version(cuda):
         ref = segment_tile.sorted_segment_sum_tiles_ref(idx_s.cpu(), upd[order].t().cpu(), rows)
         assert got.shape == (rows, 2)
         assert float((got.cpu() - ref).abs().max()) <= 1e-5 * float(ref.abs().max()) + 1e-7
+
+
+def _one_rank_parallel_steps(ctx, steps: int) -> dict:
+    """In a one-rank NCCL world: ``steps`` of ``train_step``, of
+    ``parallel_train_step`` and of its ZeRO-1 form from equal states, with
+    the error map and hit compaction on -> whether each pair is bitwise."""
+    from neus2_tpu_torch.parallel import train as pt
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(_small_config(), use_error_map=True)
+    images, cams = make_sphere_dataset(n_views=4, resolution=32, seed=0).to_device(ctx.device)
+
+    def start():
+        state = tt.init_train_state(cfg, 4, seed=0, device=ctx.device)
+        return tt.occupancy_prior_sweep(state, cfg)
+
+    single, rep, z1 = start(), pt.replicate_state(start(), ctx), pt.shard_state_zero1(start(), ctx)
+    for _ in range(steps):
+        single, _ = tt.train_step(single, images, cams, cfg)
+        rep, _ = pt.parallel_train_step(rep, images, cams, cfg, ctx)
+        z1, _ = pt.parallel_train_step(z1, images, cams, cfg, ctx, zero1=True)
+    z1 = z1._replace(opt_state=pt.gather_opt_state(z1.opt_state, z1.params, ctx))
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(
+            tree_leaves([a.params, a.ema_params, a.opt_state, list(a.error_map)]),
+            tree_leaves([b.params, b.ema_params, b.opt_state, list(b.error_map)]))
+            if torch.is_tensor(x))
+
+    return {"parallel_is_train_step": same(single, rep), "zero1_is_replicated": same(rep, z1),
+            "backend": torch.distributed.get_backend()}
+
+
+def test_parallel_step_in_a_one_rank_nccl_world_is_bitwise(cuda):
+    """A world of one through NCCL: the data-parallel step is ``train_step``
+    bit for bit (the rank's slice of the global draws is the whole batch,
+    a sum over one rank is the identity), and so is ZeRO-1."""
+    from neus2_tpu_torch.parallel import distributed
+
+    out = distributed.launch(_one_rank_parallel_steps, 1, 3, device="cuda")[0]
+    assert out == {"parallel_is_train_step": True, "zero1_is_replicated": True,
+                   "backend": "nccl"}
+
+
+def test_hashgrid_encode_on_card_matches_cpu(cuda):
+    """The plain encoding on the card (its table gradient through the sort
+    and kernel 4) against the CPU (``index_add_``): features and position
+    gradients to fp32 rounding, the table gradient within 1e-5 of its max
+    (exact fp32 sums in another order)."""
+    from neus2_tpu_torch.ops import hashgrid
+
+    cfg = _small_config().field.grid
+    g = torch.Generator().manual_seed(0)
+    table = hashgrid.init_hashgrid(g, cfg) * 1e3
+    pos = torch.rand((4096, 3), generator=g)
+    ct = torch.randn((4096, cfg.n_levels * cfg.n_features_per_level), generator=g)
+    out = {}
+    for dev in ("cpu", cuda):
+        t = table.to(dev, copy=True).requires_grad_(True)
+        p = pos.to(dev, copy=True).requires_grad_(True)
+        feat = hashgrid.hashgrid_encode(t, p, cfg)
+        (feat * ct.to(dev)).sum().backward()
+        out[str(dev)] = [x.detach().cpu() for x in (feat, t.grad, p.grad)]
+    (f0, t0, p0), (f1, t1, p1) = out["cpu"], out["cuda"]
+    torch.testing.assert_close(f1, f0, rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(p1, p0, rtol=1e-4, atol=1e-4 * float(p0.abs().max()))
+    assert float((t1 - t0).abs().max()) <= 1e-5 * float(t0.abs().max())

@@ -143,13 +143,6 @@ def test_cli_dynamic_scene_writes_transforms_and_meshes(tmp_path, capsys):
         "final.msgpack", "transform_1.txt"]
 
 
-@pytest.mark.parametrize("flags", [["--multichip", "on"]])
-def test_cli_unported_paths_raise(flags, tmp_path):
-    with pytest.raises(NotImplementedError):
-        run.main(["--scene", "none.json", "--device", "cpu", "--output_dir", str(tmp_path),
-                  *flags])
-
-
 def test_cli_defaults_to_the_card():
     args = run.parse_args(["--scene", "s.json"])
     assert args.device == "cuda" and args.eval_spp == 8 and args.mesh_resolution == 256

@@ -79,9 +79,14 @@ def _step_draws(key, cfg, n_images):
     pixels uniformly or, with the error map, its uniforms and jitter
     (error_map.sample_pixels :183); the probe and sample draws in the
     compaction's split order or march_rays' (march.py:240)."""
+    key, k_step = jax.random.split(key)
+    return _forward_draws(k_step, cfg, n_images), k_step, key
+
+
+def _forward_draws(k_step, cfg, n_images):
+    """The draws ``_forward_loss`` makes from the key it is given."""
     R, S = cfg.n_rays, cfg.samples_per_ray
     C = R * cfg.hit_oversample
-    key, k_step = jax.random.split(key)
     k_pix, k_march, k_bg, k_drop = jax.random.split(k_step, 4)
     k_a, k_b = jax.random.split(k_pix)
     if cfg.hit_oversample > 1:
@@ -94,14 +99,13 @@ def _step_draws(key, cfg, n_images):
     if cfg.use_error_map:
         pixels = dict(img_idx=None, uv0=None, em_u=t(jax.random.uniform(k_a, (C,))),
                       em_jitter=t(jax.random.uniform(k_b, (C, 2))))
-    draws = tt.StepDraws(
+    return tt.StepDraws(
         probe_u=t(jax.random.uniform(k_probe, (C, cfg.n_candidates))),
         xi=t(jax.random.uniform(k_draw, (R, S))),
         bg=t(jax.random.uniform(k_bg, (C, 3))),
         drop_u=t(jax.random.uniform(k_drop, (C,))),
         **pixels,
     )
-    return draws, k_step, key
 
 
 def _close_tree(a_tree, b_leaves, rel):
