@@ -2165,7 +2165,11 @@ def parallel_rank(ctx, cfg, hyper, snap_dir: str) -> dict:
                  one_step_table_max_share_over=max(p["table_max_share_over"] for p in per_step),
                  one_step_mlp_max_rel=max(p["mlp_max_rel"] for p in per_step),
                  free=free, free_last_loss_rel_diff=loss_rel)
-    if (not free["bitwise"]) if exact else loss_rel > 1e-3:
+    # Free steps drift apart by flipped Adam steps: a table entry by at most
+    # about one step (the learning rate), an MLP leaf by 1e-4 of its max.
+    drifted = (free["table_max_abs"] > cfg.optim.learning_rate or free["mlp_max_rel"] > 1e-4
+               or loss_rel > 1e-5)
+    if (not free["bitwise"]) if exact else drifted:
         raise AssertionError(f"(c) after {len(rank_draws)} free steps: {free}, loss {loss_rel}")
     out["zero1_vs_replicated"] = zero1
     del rep, z1, one, same_start, rank_draws
@@ -2265,10 +2269,12 @@ def parallel_phase(torch) -> dict:
       (c) ZeRO-1 against replicated with the same draws: each of 20 steps
           from the replicated state, bitwise in a world of one, else under
           the same rule; and 20 free steps of each from one start, bitwise
-          in a world of one, else the last loss within 1e-3 relative (the
-          one-step rule is not held over free steps: each lets another
-          rounding-level gradient flip an Adam step); the Adam state's
-          bytes a rank for both, and the sharded table leaves;
+          in a world of one, else every table entry within the field's
+          learning rate (one Adam step), every MLP leaf within 1e-4 of its
+          max and the last loss within 1e-5 relative (the one-step rule is
+          not held over free steps: each lets another rounding-level
+          gradient flip an Adam step); the Adam state's bytes a rank for
+          both, and the sharded table leaves;
       (d) a ZeRO-1 Testbed's snapshot loaded into a replicated Testbed:
           every leaf and ``render(img_idx=0)`` bitwise.
 

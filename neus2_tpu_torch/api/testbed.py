@@ -80,6 +80,7 @@ from neus2_tpu_torch.parallel import distributed
 from neus2_tpu_torch.parallel.train import (
     gather_opt_state,
     parallel_train_step,
+    replicate_error_cdf,
     replicate_state,
     shard_opt_state,
     shard_state_zero1,
@@ -543,6 +544,8 @@ class Testbed:
                 state = occupancy_update(state, cfg)
             if cfg.use_error_map and emap.should_rebuild(self.training_step):
                 state = rebuild_error_cdf(state)
+                if self.parallel is not None:
+                    state = replicate_error_cdf(state, self.parallel)
         depths = self.depths if cfg.depth_supervision_lambda > 0.0 else None
         with self.meters.scope("training"):
             if self.parallel is None:

@@ -22,7 +22,9 @@ import dataclasses
 import datetime
 import os
 import shutil
+import sys
 import tempfile
+import traceback
 from pathlib import Path
 from typing import Any, Callable
 
@@ -124,9 +126,17 @@ def _rank_main(rank: int, fn: Callable, world: int, store: str, device: str, res
     _init_group(dev, f"file://{store}", world, rank)
     try:
         out = fn(ParallelContext(rank, world, dev), *args)
-        torch.save(out, Path(result_dir) / f"rank{rank}.pt")
-    finally:
-        dist.destroy_process_group()
+    except BaseException:
+        # Its peers may wait in a collective this rank never joins, and an
+        # NCCL group's destroy would wait with them until the timeout: leave
+        # at once, the error where ``launch`` reads it; ``launch`` then ends
+        # the other ranks.
+        (Path(result_dir) / f"rank{rank}.err").write_text(traceback.format_exc())
+        traceback.print_exc()
+        sys.stderr.flush()
+        os._exit(1)
+    torch.save(out, Path(result_dir) / f"rank{rank}.pt")
+    dist.destroy_process_group()
 
 
 def launch(fn: Callable, world: int, *args, device="cuda") -> list:
@@ -135,7 +145,8 @@ def launch(fn: Callable, world: int, *args, device="cuda") -> list:
     a file store -> the ranks' return values, in rank order.
 
     ``fn`` and ``args`` are pickled (``fn`` by its import path).  A rank
-    that raises makes ``launch`` raise once every rank has ended."""
+    that raises ends the others at once, and ``launch`` raises with each
+    failed rank's traceback."""
     if torch.device(device).type == "cuda":
         resolve_device(device)
         n = torch.cuda.device_count()
@@ -144,9 +155,16 @@ def launch(fn: Callable, world: int, *args, device="cuda") -> list:
                              "(NCCL puts one rank on one card)")
     tmp = tempfile.mkdtemp(prefix="neus2_launch_")
     try:
-        torch.multiprocessing.start_processes(
-            _rank_main, args=(fn, world, os.path.join(tmp, "store"), str(device), tmp, args),
-            nprocs=world, join=True, start_method="spawn")
+        try:
+            torch.multiprocessing.start_processes(
+                _rank_main, args=(fn, world, os.path.join(tmp, "store"), str(device), tmp, args),
+                nprocs=world, join=True, start_method="spawn")
+        except (torch.multiprocessing.ProcessRaisedException,
+                torch.multiprocessing.ProcessExitedException) as e:
+            errs = sorted(Path(tmp).glob("rank*.err"))
+            if not errs:
+                raise
+            raise RuntimeError("".join(f"{p.stem} failed:\n{p.read_text()}" for p in errs)) from e
         return [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False)
                 for r in range(world)]
     finally:

@@ -13,7 +13,10 @@ every rank is a process with the whole state (``replicate_state``) and a
   * gradients and the step's scalars are summed over the ranks and divided
     by the world size (the JAX package's ``pmean``); the sharpness grid is
     combined by MAX; the error map's per-ray deposits are gathered in rank
-    order (the ``P("data")`` out-spec) and deposited on every rank;
+    order (the ``P("data")`` out-spec) and deposited on every rank; the
+    CDF each rank rebuilds from that map is rank 0's
+    (``replicate_error_cdf``), since its prefix sum has no fixed order on
+    the card;
   * the update after the gradients is ``train_step``'s own
     (``engine/train.py::apply_grads``), the same on every rank, so the
     replicas stay bitwise equal.
@@ -191,30 +194,13 @@ def parallel_train_step(state: TrainState, images: torch.Tensor, cameras: Camera
 
     ``config.n_rays`` is the per-rank ray count.  ``zero1`` shards the
     table gradients and the field's Adam over the ranks in canonical
-    phases (``_train_step_zero1``); ``state.opt_state`` must then hold this
-    rank's rows (``shard_state_zero1``)."""
-    if zero1 and train_canonical:
-        return _train_step_zero1(state, images, cameras, config, ctx, train_delta, use_delta,
-                                 depths, draws)
-    return _step(state, images, cameras, config, ctx, train_canonical, train_delta, use_delta,
-                 depths, draws, spec=None)
-
-
-def _train_step_zero1(state: TrainState, images, cameras, config: TrainConfig,
-                      ctx: ParallelContext, train_delta: bool, use_delta: bool, depths,
-                      draws: StepDraws | None):
-    """The canonical step with ZeRO-1 table sharding: the gradients of the
-    shardable tables reduce-scattered (half an all-reduce), the tcnn Adam on
-    this rank's rows only, the new rows all-gathered (the other half): the
-    all-reduce's bytes, with the optimizer's memory and work divided by the
-    world size."""
-    return _step(state, images, cameras, config, ctx, True, train_delta, use_delta, depths,
-                 draws, spec=table_spec_tree(state.params, ctx.world))
-
-
-def _step(state: TrainState, images, cameras, config: TrainConfig, ctx: ParallelContext,
-          train_canonical: bool, train_delta: bool, use_delta: bool, depths,
-          draws: StepDraws | None, spec):
+    phases; ``state.opt_state`` must then hold this rank's rows
+    (``shard_state_zero1``).  The gradients of the shardable tables are
+    then reduce-scattered (half an all-reduce), the tcnn Adam runs on this
+    rank's rows only and the new rows are all-gathered (the other half):
+    the all-reduce's bytes, with the optimizer's memory and work divided by
+    the world size."""
+    spec = table_spec_tree(state.params, ctx.world) if zero1 and train_canonical else None
     config = phase_config(config, train_canonical, train_delta)
     if draws is None:
         draws = sample_rank_draws(state.generator, config, cameras.n_images, ctx)
@@ -231,6 +217,15 @@ def _step(state: TrainState, images, cameras, config: TrainConfig, ctx: Parallel
 
 def _broadcast_(t: torch.Tensor, ctx: ParallelContext) -> None:
     dist.broadcast(t.view(torch.uint8) if t.dtype == torch.bool else t, 0, group=ctx.group)
+
+
+def replicate_error_cdf(state: TrainState, ctx: ParallelContext) -> TrainState:
+    """Rank 0's error-map CDF on every rank, after a rebuild: the CDF's
+    prefix sum (``torch.cumsum`` of a 1-D tensor) has no fixed summation
+    order on the card, so ranks that rebuild it from one error map may
+    differ in its last bits."""
+    _broadcast_(state.error_map.cdf, ctx)
+    return state
 
 
 def _state_tensors(state: TrainState) -> list:

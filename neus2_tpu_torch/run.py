@@ -249,21 +249,25 @@ def main_nerf(args, out: Path):
     if not args.no_train:
         train(tb, args, out, log)
     tb.prepare_for_test()
-    if not primary:  # the outputs below are rank 0's
-        return tb
-
-    if args.grid_stats:
+    if primary and args.grid_stats:
         from neus2_tpu_torch.utils.introspect import format_level_stats, hashgrid_level_stats
 
         log("hashgrid level stats:\n" + format_level_stats(hashgrid_level_stats(tb.state.params)))
 
-    if args.save_mesh:
-        mesh_path = out / "mesh" / "mesh.obj"
-        log(f"extracting mesh @ {args.mesh_resolution}^3 -> {mesh_path}")
-        verts, tris = tb.compute_and_save_marching_cubes_mesh(
+    # Every rank reaches the mesh write: the Testbed writes on rank 0 and
+    # then holds the ranks at a barrier.  The outputs after it are rank 0's.
+    mesh = None
+    if args.save_mesh or args.ref_mesh:
+        mesh_path = out / "mesh" / ("mesh.obj" if args.save_mesh else "eval_mesh.obj")
+        if args.save_mesh:
+            log(f"extracting mesh @ {args.mesh_resolution}^3 -> {mesh_path}")
+        mesh = tb.compute_and_save_marching_cubes_mesh(
             mesh_path, resolution=args.mesh_resolution,
-            keep_largest_component=args.mesh_largest_component)
-        log(f"mesh: {len(verts)} vertices, {len(tris)} triangles")
+            keep_largest_component=args.save_mesh and args.mesh_largest_component)
+    if not primary:
+        return tb
+    if args.save_mesh:
+        log(f"mesh: {len(mesh[0])} vertices, {len(mesh[1])} triangles")
 
     if args.save_density_png:
         from neus2_tpu_torch.engine.mesh import save_density_grid_png
@@ -280,12 +284,9 @@ def main_nerf(args, out: Path):
         from neus2_tpu_torch.engine.mesh import chamfer_distance
         from neus2_tpu_torch.engine.sdf_mode import load_mesh_obj
 
-        if not args.save_mesh:
-            verts, tris = tb.compute_and_save_marching_cubes_mesh(
-                out / "mesh" / "eval_mesh.obj", resolution=args.mesh_resolution)
         # OBJ exports live in the dataset's space ((v - offset) / scale):
         # compare both meshes there.
-        verts_ds = (verts - np.asarray(tb.dataset.offset, np.float32)) / tb.dataset.scale
+        verts_ds = (mesh[0] - np.asarray(tb.dataset.offset, np.float32)) / tb.dataset.scale
         cd = chamfer_distance(verts_ds, load_mesh_obj(args.ref_mesh)[0], device=tb.device)
         log(f"chamfer vs {args.ref_mesh}: {cd:.6f}")
 
@@ -305,7 +306,7 @@ def main_nerf(args, out: Path):
         eval_mesh = None
         if args.save_eval_images and (args.save_mesh or args.shaded_mesh):
             if args.save_mesh:
-                eval_mesh = (verts, tris)
+                eval_mesh = mesh
             else:
                 from neus2_tpu_torch.engine.mesh import extract_mesh
                 from neus2_tpu_torch.ops.warp import scene_aabb

@@ -2,8 +2,9 @@
 under ``torchrun`` (replicated and ZeRO-1), the CLI spawning its own rank
 (``--multichip on`` started plainly), and ``--multihost`` with one process
 (tests/test_parallel.py::test_run_cli_multihost_flag).  Rank 0 alone
-writes the log and the snapshot; the log names the world and the global
-batch.
+writes the log, the snapshot and the mesh (``--save_mesh``, or the
+Chamfer eval's mesh of ``--ref_mesh``) while every rank reaches the write;
+the log names the world and the global batch.
 """
 
 import json
@@ -19,7 +20,9 @@ import torch
 from neus2_tpu_torch import run
 from neus2_tpu_torch.api import msgpack_codec
 from neus2_tpu_torch.data.export import save_dataset_na
-from neus2_tpu_torch.data.synthetic import make_sphere_dataset
+from neus2_tpu_torch.data.synthetic import make_sphere_dataset, sphere_sdf
+from neus2_tpu_torch.engine.mesh import save_mesh_obj
+from neus2_tpu_torch.native import marching_cubes
 
 torch.set_num_threads(2)
 REPO = Path(__file__).resolve().parent.parent
@@ -37,6 +40,10 @@ def scene(tmp_path_factory):
     d = tmp_path_factory.mktemp("multichip")
     save_dataset_na(make_sphere_dataset(n_views=4, resolution=24, seed=0), d / "train")
     (d / "net.json").write_text(json.dumps(NETWORK))
+    xs = (np.arange(24) + 0.5) / 24  # the true sphere's mesh, in the dataset's space
+    v, f = marching_cubes(sphere_sdf(np.stack(np.meshgrid(xs, xs, xs, indexing="ij"), -1))
+                          .astype(np.float32))
+    save_mesh_obj(d / "ref.obj", ((v + 0.5) / 24).astype(np.float32), f, offset=(0.5, 0.5, 0.5))
     return d
 
 
@@ -56,19 +63,29 @@ def _final(d: Path, name: str) -> dict:
 
 @pytest.mark.parametrize("zero1", [False, True], ids=["replicated", "zero1"])
 def test_cli_trains_on_two_ranks_under_torchrun(scene, zero1):
+    """Replicated with ``--ref_mesh`` alone (the eval's own mesh), ZeRO-1
+    with ``--save_mesh --ref_mesh``: each mesh write holds both ranks."""
     name = "z1" if zero1 else "rep"
+    mesh_args = ["--ref_mesh", str(scene / "ref.obj"), "--mesh_resolution", "24"]
+    if zero1:
+        mesh_args += ["--save_mesh", "--zero1"]
     env = dict(os.environ, OMP_NUM_THREADS="1",
                PYTHONPATH=os.pathsep.join([str(REPO), os.environ.get("PYTHONPATH", "")]))
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
            "2", "-m", "neus2_tpu_torch.run", *_args(scene, name), "--multichip", "on"]
-    res = subprocess.run(cmd + (["--zero1"] if zero1 else []), env=env, cwd=REPO,
-                         capture_output=True, text=True, timeout=600)
+    res = subprocess.run(cmd + mesh_args, env=env, cwd=REPO, capture_output=True, text=True,
+                         timeout=600)
     assert res.returncode == 0, res.stderr[-3000:]
     log = (scene / "out" / name / "log.txt").read_text()
     want = ("multichip: data-parallel over 2 ranks (128 rays/batch global, 64 a rank"
             + (", zero1 table sharding)" if zero1 else ")"))
     assert log.count(want) == 1 and res.stdout.count(want) == 1
     assert log.count("training done") == 1
+    meshes = sorted(p.name for p in (scene / "out" / name / "mesh").iterdir())
+    assert meshes == ["mesh.obj" if zero1 else "eval_mesh.obj"]
+    assert log.count(f"chamfer vs {scene / 'ref.obj'}: ") == 1
+    cd = float(log.split(f"chamfer vs {scene / 'ref.obj'}: ")[1].split()[0])
+    assert 0.0 < cd < 0.5
     final = _final(scene, name)
     # The whole Adam state, gathered from the ranks' halves under ZeRO-1.
     mu = final["leaves"][".opt_state['mu']['hashgrid'][3]"]
