@@ -5,7 +5,8 @@
 
 Builds the CUDA kernels of ``neus2_tpu_torch/csrc`` from source and holds
 each of the four segment-sum kernels against its plain PyTorch version at
-the shapes its path gives it, at F=2 and F=8 (``kernel_phase`` for kernel
+the shapes its path gives it, at F=2 and F=8 (base.json's levels), at F=4
+(tpu_opt.json's) and kernel 1 at l4f8.json's (``kernel_phase`` for kernel
 1, ``kernel_phase_sorted`` for kernels 2-4), timed with CUDA events over
 back-to-back calls (``cuda_ms``; kernel 4 and its ``index_add_`` also with
 the card held until every call is queued).  Then it drives each path that
@@ -32,6 +33,13 @@ runs them, with the launch counts set to 0 just before and read just after:
     resumed for 20 steps (kernel 1 once a step, losses bitwise the
     original's), a reference-format export, import and re-export (byte-equal
     blobs) with 5 steps from it, and the pyngp ``render(width, height)``;
+  * ``wide_rows_phase``: once for each of the repo's wider-row
+    configurations, ``configs/tpu_opt.json`` (7 levels x 4 features) and
+    ``configs/l4f8.json`` (4 x 8) at their published widths: the field on
+    the card against the CPU, then the Testbed phase's run (kernel 1 once
+    a step, held-out views, the mesh), a native snapshot round trip
+    (every leaf bitwise) and a reference-format export round trip, with
+    device ms and launches a step beside base.json's;
   * ``dynamic_phase``: the dynamic Testbed at the same width with the
     error map and its sharpness weighting on, over a 3-frame scene of a
     sphere moved by a known shift a frame: per-frame pose refinement (no
@@ -91,6 +99,7 @@ WARMUP_STEPS = 20
 PROFILE_STEPS = 20
 SCENE_RES = 256  # the synthetic scenes' image side
 TESTBED_STEPS = 200
+WIDE_ROW_CONFIGS = ("tpu_opt.json", "l4f8.json")  # wide_rows_phase, at their published widths
 RESUME_STEPS = 20  # snapshot_phase: steps after a native resume
 REFERENCE_STEPS = 5  # and after a reference-format import
 DYNAMIC_FRAMES = 3
@@ -462,7 +471,8 @@ def op_path_phase(torch, st, sc, cfg) -> dict:
     return out
 
 
-def testbed_phase(torch, st, cfg, hyper, steps: int = TESTBED_STEPS) -> dict:
+def testbed_phase(torch, st, cfg, hyper, steps: int = TESTBED_STEPS,
+                  label: str = "testbed_phase") -> dict:
     """The static Testbed at full width, as a user drives it: load a
     16-view 256^2 synthetic sphere scene, ``while tb.frame()``, render two
     held-out views at the eval protocol (spp 8, black background, min
@@ -541,7 +551,7 @@ def testbed_phase(torch, st, cfg, hyper, steps: int = TESTBED_STEPS) -> dict:
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
         "meters": tb.meters.summary(),
     }
-    print("testbed_phase " + json.dumps(out), flush=True)
+    print(f"{label} " + json.dumps(out), flush=True)
     return out, tb
 
 
@@ -573,6 +583,78 @@ class LossRecorder:
             setattr(self.module, name, step)
 
 
+def fresh_testbed(tb):
+    """A new card Testbed of ``tb``'s config, hyperparameters and seed on
+    the 16-view SCENE_RES^2 sphere scene, untrained."""
+    from neus2_tpu_torch.api.testbed import Testbed
+    from neus2_tpu_torch.data.synthetic import make_sphere_dataset
+
+    t = Testbed(config=tb.config, hyper=dataclasses.replace(tb.hyper), seed=tb.seed,
+                device="cuda")
+    t.load_training_data_from_datasets([make_sphere_dataset(n_views=16, resolution=SCENE_RES,
+                                                            seed=0)])
+    return t
+
+
+def same_leaves(a, b, what: str) -> int:
+    """Every leaf of two Testbeds' states (the generator's too) bitwise
+    equal -> the number of leaves."""
+    import numpy as np
+
+    from neus2_tpu_torch import interop
+
+    x, y = interop.state_to_pathdict(a.state), interop.state_to_pathdict(b.state)
+    if x.keys() != y.keys():
+        raise AssertionError(f"{what}: the leaf keys differ")
+    for k in x:
+        if x[k].dtype != y[k].dtype or not np.array_equal(x[k], y[k]):
+            raise AssertionError(f"{what}: leaf {k} differs")
+    return len(x)
+
+
+def export_reference(t, path: Path) -> dict:
+    """``t``'s EMA params, density grid and transform as a reference-format
+    snapshot at ``path`` -> its "snapshot" document."""
+    from neus2_tpu_torch import interop
+    from neus2_tpu_torch.api import msgpack_codec
+    from neus2_tpu_torch.api.ngp_snapshot import save_reference_snapshot
+
+    save_reference_snapshot(
+        path, interop.tree_to_numpy(t.state.ema_params), t.config.field,
+        density_grid=t.state.occupancy.density.cpu().numpy(),
+        acc=interop.tree_to_numpy(t.state.acc), aabb_scale=t.config.aabb_scale,
+        training_step=t.training_step, loss=t.loss)
+    return msgpack_codec.unpackb(path.read_bytes())["snapshot"]
+
+
+def reference_round_trip(torch, t, d: Path) -> tuple[dict, object]:
+    """``t`` exported in the reference format, imported into a fresh
+    Testbed and exported again: both documents' ``n_params`` as
+    ``ngp_n_params`` says and their blobs byte-equal -> ({n_params, the
+    file's MB, save and load s on the host clock}, the importing Testbed)."""
+    from neus2_tpu_torch.api.ngp_snapshot import ngp_n_params
+
+    ref = d / "ref.msgpack"
+    t0 = time.perf_counter()
+    doc = export_reference(t, ref)
+    save_s = time.perf_counter() - t0
+    imported = fresh_testbed(t)
+    t0 = time.perf_counter()
+    imported.load_snapshot(ref)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    doc2 = export_reference(imported, d / "ref2.msgpack")
+    want = ngp_n_params(t.config.field)
+    if not doc["n_params"] == doc2["n_params"] == want:
+        raise AssertionError(f"reference n_params {doc['n_params']}, {doc2['n_params']}, "
+                             f"ngp_n_params {want}")
+    for key in ("params_binary", "density_grid_binary"):
+        if doc[key] != doc2[key]:
+            raise AssertionError(f"reference re-export: {key} differs")
+    return {"n_params": want, "mb": ref.stat().st_size / 1e6, "save_s": save_s,
+            "load_s": load_s}, imported
+
+
 def snapshot_phase(torch, st, tb) -> dict:
     """Snapshots and the pyngp surface on ``testbed_phase``'s trained
     Testbed, as a user saves, resumes and renders a model:
@@ -592,12 +674,8 @@ def snapshot_phase(torch, st, tb) -> dict:
         an orbit pose, timed with CUDA events and on the host clock."""
     import numpy as np
 
-    from neus2_tpu_torch import interop
-    from neus2_tpu_torch.api import msgpack_codec
     from neus2_tpu_torch.api import testbed as testbed_mod
-    from neus2_tpu_torch.api.ngp_snapshot import ngp_n_params, save_reference_snapshot
     from neus2_tpu_torch.data.dataset import ngp_matrix_to_nerf
-    from neus2_tpu_torch.data.synthetic import make_sphere_dataset
     from neus2_tpu_torch.utils.camera_path import orbit_path
 
     # The bucket is host state no snapshot holds, in either package.
@@ -605,22 +683,6 @@ def snapshot_phase(torch, st, tb) -> dict:
                      "last_aux")
     print("snapshot_phase departures: the resumed Testbed takes the original's host-only "
           f"batch-bucket state {list(bucket_fields)} before the resumed steps", flush=True)
-
-    def fresh():
-        t = testbed_mod.Testbed(config=tb.config, hyper=dataclasses.replace(tb.hyper),
-                                seed=tb.seed, device="cuda")
-        t.load_training_data_from_datasets(
-            [make_sphere_dataset(n_views=16, resolution=SCENE_RES, seed=0)])
-        return t
-
-    def same_leaves(a, b, what):
-        x, y = interop.state_to_pathdict(a.state), interop.state_to_pathdict(b.state)
-        if x.keys() != y.keys():
-            raise AssertionError(f"{what}: the leaf keys differ")
-        for k in x:
-            if x[k].dtype != y[k].dtype or not np.array_equal(x[k], y[k]):
-                raise AssertionError(f"{what}: leaf {k} differs")
-        return len(x)
 
     def train_on(t, steps):
         t.first_frame_max_training_step = t.training_step + steps
@@ -649,7 +711,7 @@ def snapshot_phase(torch, st, tb) -> dict:
         tb.save_snapshot(inc, incremental=True)
         out["save_incremental_s"] = time.perf_counter() - t0
         out["full_mb"], out["incremental_mb"] = full.stat().st_size / 1e6, inc.stat().st_size / 1e6
-        resumed = fresh()
+        resumed = fresh_testbed(tb)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         resumed.load_snapshot(full)
@@ -673,36 +735,11 @@ def snapshot_phase(torch, st, tb) -> dict:
                          "launches_resumed": n_res, "losses": [float(v) for v in again]}
         del resumed
 
-        ref, ref2 = Path(d) / "ref.msgpack", Path(d) / "ref2.msgpack"
-
-        def export(t, path):
-            save_reference_snapshot(
-                path, interop.tree_to_numpy(t.state.ema_params), t.config.field,
-                density_grid=t.state.occupancy.density.cpu().numpy(),
-                acc=interop.tree_to_numpy(t.state.acc), aabb_scale=t.config.aabb_scale,
-                training_step=t.training_step, loss=t.loss)
-            return msgpack_codec.unpackb(path.read_bytes())["snapshot"]
-
-        t0 = time.perf_counter()
-        doc = export(tb, ref)
-        out["reference_save_s"] = time.perf_counter() - t0
-        out["reference_mb"] = ref.stat().st_size / 1e6
-        imported = fresh()
-        t0 = time.perf_counter()
-        imported.load_snapshot(ref)
-        torch.cuda.synchronize()
-        out["reference_load_s"] = time.perf_counter() - t0
-        doc2 = export(imported, ref2)
-        want = ngp_n_params(tb.config.field)
-        if not doc["n_params"] == doc2["n_params"] == want:
-            raise AssertionError(f"reference n_params {doc['n_params']}, {doc2['n_params']}, "
-                                 f"ngp_n_params {want}")
-        for key in ("params_binary", "density_grid_binary"):
-            if doc[key] != doc2[key]:
-                raise AssertionError(f"reference re-export: {key} differs")
+        ref, imported = reference_round_trip(torch, tb, Path(d))
+        out.update({f"reference_{k}": ref[k] for k in ("save_s", "mb", "load_s")})
         losses, n_ref = train_on(imported, REFERENCE_STEPS)
-        out["reference"] = {"n_params": want, "steps": REFERENCE_STEPS, "launches": n_ref,
-                            "losses": [float(v) for v in losses]}
+        out["reference"] = {"n_params": ref["n_params"], "steps": REFERENCE_STEPS,
+                            "launches": n_ref, "losses": [float(v) for v in losses]}
         del imported
 
     tb.set_camera_to_training_view(1)
@@ -733,6 +770,53 @@ def snapshot_phase(torch, st, tb) -> dict:
                     "render_512_host_ms": host_ms,
                     "orbit_alpha_mean": float(orbit[..., 3].mean())}
     print("snapshot_phase " + json.dumps(out), flush=True)
+    return out
+
+
+def wide_rows_phase(torch, st, name: str, base: dict) -> dict:
+    """``configs/<name>`` as the repo ships it, at its published widths
+    (tpu_opt.json: 7 levels x 4 features; l4f8.json: 4 x 8; base.json's
+    tables and MLPs otherwise), as testbed_phase drives base.json:
+
+      * the field and its gradients on the card against the CPU
+        (``field_agrees_with_cpu``, through kernel 1 at the config's F);
+      * testbed_phase's run: TESTBED_STEPS steps on the same scene,
+        kernel 1 once a step, the loss finite and falling, two held-out
+        views at spp 8 that beat the all-black image, the 256^3 mesh
+        passing the sphere checks; host and device ms a step and device
+        launches a step over the same profile windows as ``base`` (the
+        base.json Testbed's run), printed beside them;
+      * a native snapshot loaded into a fresh Testbed, every leaf bitwise,
+        and a reference-format export, import and re-export, byte-equal
+        blobs of ``ngp_n_params`` values."""
+    from neus2_tpu_torch.api.testbed import config_from_json
+
+    cfg, hyper = config_from_json(REPO / "configs" / name)
+    grid = cfg.field.grid
+    print(f"wide_rows_phase {name}: {grid.n_levels} levels x {grid.n_features_per_level} "
+          f"features, 2^{grid.log2_hashmap_size} rows", flush=True)
+    field = field_agrees_with_cpu(torch, cfg)
+    run_out, tb = testbed_phase(torch, st, cfg, hyper, label=f"wide_rows_phase {name} testbed")
+    with tempfile.TemporaryDirectory() as d:
+        full = Path(d) / "full.msgpack"
+        tb.save_snapshot(full)
+        snap_mb = full.stat().st_size / 1e6
+        resumed = fresh_testbed(tb)
+        resumed.load_snapshot(full)
+        n_leaves = same_leaves(tb, resumed, f"{name}: native round trip")
+        del resumed
+        ref, imported = reference_round_trip(torch, tb, Path(d))
+        del imported
+    del tb
+    keys = ("ms_per_step", "host_ms_per_step", "device_ms_per_step", "device_launches_per_step")
+    out = {"config": name, "levels": grid.n_levels, "F": grid.n_features_per_level,
+           "field_vs_cpu": field, **run_out, "snapshot_leaves": n_leaves,
+           "snapshot_mb": snap_mb, "reference_n_params": ref["n_params"],
+           **{f"base_json_{k}": base[k] for k in keys}}
+    print(f"wide_rows_phase {name} " + json.dumps({k: out[k] for k in (
+        "config", "levels", "F", "steps", "launches", "launches_per_step", "loss_first",
+        "loss_last", "snapshot_leaves", "snapshot_mb", "reference_n_params", *keys,
+        *(f"base_json_{k}" for k in keys))}), flush=True)
     return out
 
 
@@ -1274,7 +1358,9 @@ def lens_phase(torch, st, cfg, hyper, static: dict, pinhole: dict) -> dict:
     ``load_training_data``, LENS_STEPS steps with fp16 image storage (the
     phase's only departure from base.json), the two held-out views of
     camera seed 1 (written through the same lens) scored by ``run.evaluate``
-    with the lens and with ``render_with_camera_distortion`` off; then
+    with the lens and, from a copy of their json without k1-p2, without
+    it (``run.evaluate`` renders a held-out view through the lens its json
+    names, as the JAX package's does); then
     CAMERA_MODEL_STEPS steps each of a rolling-shutter, an FTheta and a
     ray-file scene (16 views at 256^2, fp32 storage).  ``static`` holds
     profile_phase's numbers and ``pinhole`` testbed_phase's, whose windows
@@ -1296,6 +1382,11 @@ def lens_phase(torch, st, cfg, hyper, static: dict, pinhole: dict) -> dict:
         t0 = time.perf_counter()
         path = write_lens_scene(Path(d), "lens", 16, SCENE_RES, seed=0)
         held = write_lens_scene(Path(d), "lens", 2, SCENE_RES, seed=1, name="held_out")
+        meta = json.loads(held.read_text())
+        for k in ("k1", "k2", "p1", "p2"):
+            del meta[k]
+        held_plain = held.with_name("held_out_no_lens.json")
+        held_plain.write_text(json.dumps(meta))
         out["write_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         tb = Testbed(config=cfg, hyper=dataclasses.replace(
@@ -1314,13 +1405,11 @@ def lens_phase(torch, st, cfg, hyper, static: dict, pinhole: dict) -> dict:
             raise AssertionError(f"lens phase: the loss did not fall {run_out}")
         tb.prepare_for_test()
         held_psnr = {}
-        for name, on in (("with_lens", True), ("lens_stripped", False)):
-            tb.render_with_camera_distortion = on
+        for name, views in (("with_lens", held), ("lens_stripped", held_plain)):
             t0 = time.perf_counter()
-            psnrs, ssims = run.evaluate(tb, str(held), EVAL_SPP, lambda *a: None)
+            psnrs, ssims = run.evaluate(tb, str(views), EVAL_SPP, lambda *a: None)
             held_psnr[name] = {"psnr": psnrs, "ssim": ssims,
                                "eval_s": time.perf_counter() - t0}
-        tb.render_with_camera_distortion = True
         gain = np.mean(held_psnr["with_lens"]["psnr"]) - np.mean(held_psnr["lens_stripped"]["psnr"])
         if not gain > 0.0:
             raise AssertionError(f"lens phase: the lens does not beat its absence {held_psnr}")
@@ -2330,9 +2419,15 @@ def main() -> int:
     print(f"build_s {time.perf_counter() - t0:.1f}", flush=True)
 
     cfg, hyper = config_from_json(REPO / "configs" / "base.json")
+    # F=4 at tpu_opt.json's levels, the shapes its Testbed gives the kernels.
+    tpu_opt_cfg = config_from_json(REPO / "configs" / "tpu_opt.json")[0]
+    l4f8_cfg = config_from_json(REPO / "configs" / "l4f8.json")[0]
     k1, k1_f8 = kernel_phase(torch, st, cfg, 2), kernel_phase(torch, st, cfg, 8)
+    k1_f4 = kernel_phase(torch, st, tpu_opt_cfg, 4)
+    k1_l4f8 = kernel_phase(torch, st, l4f8_cfg, 8, label="kernel_phase_l4f8")
     sorted_k = kernel_phase_sorted(torch, st, cfg, 2)
     sorted_f8 = kernel_phase_sorted(torch, st, cfg, 8)
+    sorted_f4 = kernel_phase_sorted(torch, st, tpu_opt_cfg, 4)
     ops = op_path_phase(torch, st, sc, cfg)
     field_agrees_with_cpu(torch, cfg)
     images, cams = make_sphere_dataset(n_views=16, resolution=SCENE_RES, seed=0).to_device("cuda")
@@ -2343,6 +2438,7 @@ def main() -> int:
     mesh_outputs_phase(torch, testbed)
     snap = snapshot_phase(torch, st, testbed)
     del testbed
+    wide = {name: wide_rows_phase(torch, st, name, tb) for name in WIDE_ROW_CONFIGS}
     dyn = dynamic_phase(torch, st, cfg, hyper)
     camera = camera_phase(torch, st, cfg, hyper, prof["device_ms_per_step"])
     lens = lens_phase(torch, st, cfg, hyper, prof, tb)
@@ -2351,19 +2447,24 @@ def main() -> int:
     image = image_phase(torch, st)
     parallel = parallel_phase(torch)
 
-    def entry(name, replaces, rec, rec_f8, launches, extra=()):
-        f8_keys = ("max_abs_err", "kernel_ms", "plain_ms", "bound_ms", "library_ms", *extra)
+    def entry(name, replaces, rec, rec_f8, rec_f4, launches, extra=()):
+        wide_keys = ("max_abs_err", "kernel_ms", "plain_ms", "bound_ms", "library_ms", *extra)
         return {
             "name": name, "route": "cuda", "source": "neus2_tpu_torch/csrc/segment_sum.cu",
             "replaces": replaces, "launches": launches, "max_abs_err": rec["max_abs_err"],
             "ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
-            **{k: rec[k] for k in extra}, "f8": {k: rec_f8[k] for k in f8_keys},
+            **{k: rec[k] for k in extra}, "f8": {k: rec_f8[k] for k in wide_keys},
+            "f4": {k: rec_f4[k] for k in ("levels", "bound_by", *wide_keys)},
         }
 
     kernels = [
-        {**entry("segment_sum_rows", "neus2_tpu/ops/segment_tile.py:376", k1, k1_f8,
+        {**entry("segment_sum_rows", "neus2_tpu/ops/segment_tile.py:376", k1, k1_f8, k1_f4,
                  tb["launches"]),
+         "wide_rows_launches": {n: w["launches"] for n, w in wide.items()},
+         "wide_rows_launches_per_step": {n: w["launches_per_step"] for n, w in wide.items()},
+         "l4f8_shape": {k: k1_l4f8[k] for k in ("levels", "max_abs_err", "kernel_ms",
+                                                "plain_ms", "library_ms", "bound_ms")},
          "sort_ms": k1["sort_ms"], "launches_per_step": tb["launches_per_step"],
          "train_static_launches": train["launches"],
          "dynamic_launches": dyn["launches_by_phase"],
@@ -2376,8 +2477,8 @@ def main() -> int:
          "resume_launches": {"native": snap["resume"]["launches_resumed"],
                              "reference": snap["reference"]["launches"]}},
     ] + [
-        entry(name, replaces, sorted_k[name], sorted_f8[name], ops["launches"][name],
-              extra=("entry_ms",))
+        entry(name, replaces, sorted_k[name], sorted_f8[name], sorted_f4[name],
+              ops["launches"][name], extra=("entry_ms",))
         for name, replaces in (
             ("segment_sum_packed_rows", "neus2_tpu/ops/segment_tile.py:376"),
             ("segment_sum_batched_rows", "neus2_tpu/ops/segment_tile.py:211"),
@@ -2385,7 +2486,7 @@ def main() -> int:
     ] + [
         {**entry("segment_sum_planar_rows", "neus2_tpu/ops/segment_tile.py:75",
                  sorted_k["segment_sum_planar_rows"], sorted_f8["segment_sum_planar_rows"],
-                 ops["launches"]["segment_sum_planar_rows"],
+                 sorted_f4["segment_sum_planar_rows"], ops["launches"]["segment_sum_planar_rows"],
                  extra=("held_ms", "library_held_ms")),
          "image_launches": image["launches"], "image_shape": {
              k: image["kernel"][k] for k in ("max_abs_err", "kernel_ms_per_step",

@@ -40,22 +40,22 @@
 // _tile_kernel silently drops a tile's updates past its DMA window).
 //
 // The body: a load-balanced reduce-by-key over each sorted key stream; it
-// reads the keys itself, so no row bounds are computed in front of it.
-// Each level's stream is cut into tiles of consecutive updates (2,048 at
-// F = 2, 1,024 at F = 8), one block a tile, each thread a run of 8 (4) of
-// them, read in 16-byte vector loads (keys as int4, bf16 rows as uint4,
-// planar fp32 channels as float4, packed pairs as uint4; scalar loads where
-// a base pointer or a level's or planar channel's row is not 16-byte
-// aligned, and on the ragged last run).  Work per block is the same
-// whatever the row lengths: a 4-update hashed row and a 4,096-update dense
-// row cost the same per byte.  A head is key[m] != key[m-1].  Each thread
-// sums its run serially, a segmented warp scan (__shfl_up_sync over head
-// flags) and a carry through shared memory in warp order give every thread
-// the partial sum entering its run, and the thread holding a row's last
-// update writes the row.  A row that crosses a tile boundary is finished by
-// a second small pass (stream_fixup_kernel): the tile holding the row's head
-// adds, in tile order, the partials that the following tiles recorded for
-// it, however many tiles the row spans.
+// reads the keys itself, so no row bounds are computed in front of it.  Each
+// level's stream is cut into tiles of consecutive updates (2,048 at F = 2
+// and 4, 1,024 at F = 8), one block a tile, each thread a run of 8 (4 at
+// F = 8) of them, read in 16-byte vector loads (keys as int4, bf16 rows as
+// uint4, planar fp32 channels as float4, packed pairs as uint4; scalar loads
+// where a base pointer or a level's or planar channel's row is not 16-byte
+// aligned, and on the ragged last run).  Work per block is the same whatever
+// the row lengths: a 4-update hashed row and a 4,096-update dense row cost
+// the same per byte.  A head is key[m] != key[m-1].  Each thread sums its
+// run serially, a segmented warp scan (__shfl_up_sync over head flags) and a
+// carry through shared memory in warp order give every thread the partial
+// sum entering its run, and the thread holding a row's last update writes
+// the row.  A row that crosses a tile boundary is finished by a second small
+// pass (stream_fixup_kernel): the tile holding the row's head adds, in tile
+// order, the partials that the following tiles recorded for it, however many
+// tiles the row spans.
 //
 // Levels: block b is tile b % T of level b / T, with T tiles a level, so a
 // tile never spans two levels; its keys, payload and output are the
@@ -70,14 +70,14 @@
 // nothing of the padding reaches a row.
 //
 // Empty rows: each tile owns the rows between the last key of the tile
-// before it and its own last key and writes every one of them.  At F = 2 it
-// builds them in shared memory (zeros, then its sums) and stores them in one
-// coalesced pass, so 8-byte rows reach L2 as whole sectors; at F = 8, or
-// where a gap makes the range longer than a tile, it zeroes the range in
-// place before its sums land on it.  The alternative, one cudaMemsetAsync of
-// the whole output and then only the sums, writes the rows twice and took
-// 6-21% longer for kernels 1 and 4 at both widths on an H100 80GB HBM3 at
-// 700 W (PERF.md).
+// before it and its own last key and writes every one of them.  At F = 2
+// and 4 it builds them in shared memory (zeros, then its sums) and stores
+// them in one coalesced pass, so 8- and 16-byte rows reach L2 as whole
+// sectors; at F = 8, or where a gap makes the range longer than a tile, it
+// zeroes the range in place before its sums land on it.  The alternative,
+// one cudaMemsetAsync of the whole output and then only the sums, writes
+// the rows twice and took 6-21% longer for kernels 1 and 4 at F = 2 and 8
+// on an H100 80GB HBM3 at 700 W (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -89,14 +89,23 @@ constexpr int kStreamThreads = 256;
 constexpr int kStreamWarps = kStreamThreads / 32;
 // The body's shape at F channels: kItems consecutive updates a thread
 // (fewer at F = 8, so that a run's payload stays in registers), at least
-// kMinBlocks blocks resident on an SM (the fastest of 1-6 when timed on the
-// H100), and the output rows staged in shared memory when a row is narrower
-// than a 32-byte sector (F = 2), so that they reach L2 as whole sectors; an
-// F = 8 row is a whole sector already.
+// kMinBlocks blocks resident on an SM (at F = 2 and 8 the fastest of 1-6
+// when timed on the H100), and the output rows staged in shared memory when
+// a row is narrower than a 32-byte sector (F = 2 and 4), so that they reach
+// L2 as whole sectors; an F = 8 row is a whole sector already.
+//
+// F = 4 (configs/tpu_opt.json) keeps F = 2's 8 updates a thread, so a run
+// is 32 payload floats, as at F = 8, and a tile stages 2,048 rows of 16
+// bytes: 32 KB beside its 8 KB of keys, 160 KB of the SM's 228 KB at 4
+// blocks.  Registers bound it first: 4 blocks of 256 threads leave 64 a
+// thread, where ptxas spills a few bytes a thread (its -v report, which
+// chip_smoke.py's build prints).  kMinBlocks 4 was the fastest of 3-5 for
+// kernel 1 at tpu_opt.json's shape on the H100 (and 4 updates a thread at
+// 4-6 blocks no faster).
 template <int F>
 struct Stream {
   static constexpr int kItems = F >= 8 ? 4 : 8;
-  static constexpr int kMinBlocks = F >= 8 ? 3 : 5;
+  static constexpr int kMinBlocks = F >= 8 ? 3 : (F >= 4 ? 4 : 5);
   static constexpr int64_t kTile = int64_t{kStreamThreads} * kItems;
   static constexpr bool kStageRows = F * sizeof(float) < 32;
 };
@@ -572,16 +581,24 @@ constexpr int kBadWidth = static_cast<int>(cudaErrorInvalidValue);
 }  // namespace
 
 // Plain C entry points for ctypes.  Each launch returns a cudaError_t (0 =
-// launched).  F is 2 or 8 (configs/base.json and configs/l4f8.json).  All
+// launched).  F is 2, 4 or 8 (configs/base.json, configs/tpu_opt.json and
+// configs/l4f8.json); any other width returns cudaErrorInvalidValue.  All
 // four take keys (n_levels, m) int32, ascending within each level, the
 // payload of m updates a level, out (n_levels, n_rows, F) fp32, and the
 // per-tile scratch.
 
 // Bytes of per-tile scratch the entry points need for n_levels streams of
-// m updates of F channels (the wrapper allocates it).
+// m updates of F channels (the wrapper allocates it); 0 for a width
+// without a kernel.
 extern "C" long long segment_sum_stream_scratch_bytes(long long n_levels, long long m,
                                                       int n_features) {
-  const int64_t n_tiles = n_features == 8 ? stream_tiles<8>(m) : stream_tiles<2>(m);
+  int64_t n_tiles;
+  switch (n_features) {
+    case 2: n_tiles = stream_tiles<2>(m); break;
+    case 4: n_tiles = stream_tiles<4>(m); break;
+    case 8: n_tiles = stream_tiles<8>(m); break;
+    default: return 0;
+  }
   return n_levels * n_tiles * (2LL * n_features + 1) * 4;
 }
 
@@ -594,6 +611,9 @@ extern "C" int segment_sum_rows(const void* keys, const void* upd, void* out, vo
   switch (n_features) {
     case 2:
       return launch_stream<2, false>(keys, Bf16Rows<2>{u},
+                                     out, scratch, n_levels, m, n_rows, stream);
+    case 4:
+      return launch_stream<4, false>(keys, Bf16Rows<4>{u},
                                      out, scratch, n_levels, m, n_rows, stream);
     case 8:
       return launch_stream<8, false>(keys, Bf16Rows<8>{u},
@@ -611,6 +631,9 @@ extern "C" int segment_sum_planar(const void* keys, const void* vals, void* out,
     case 2:
       return launch_stream<2, false>(keys, Planar<2, false>{v, m},
                                      out, scratch, n_levels, m, n_rows, stream);
+    case 4:
+      return launch_stream<4, false>(keys, Planar<4, false>{v, m},
+                                     out, scratch, n_levels, m, n_rows, stream);
     case 8:
       return launch_stream<8, false>(keys, Planar<8, false>{v, m},
                                      out, scratch, n_levels, m, n_rows, stream);
@@ -627,6 +650,9 @@ extern "C" int segment_sum_packed(const void* keys, const void* packed, void* ou
     case 2:
       return launch_stream<2, true>(keys, PackedPairs<2>{p, m},
                                     out, scratch, n_levels, m, n_rows, stream);
+    case 4:
+      return launch_stream<4, true>(keys, PackedPairs<4>{p, m},
+                                    out, scratch, n_levels, m, n_rows, stream);
     case 8:
       return launch_stream<8, true>(keys, PackedPairs<8>{p, m},
                                     out, scratch, n_levels, m, n_rows, stream);
@@ -642,6 +668,9 @@ extern "C" int segment_sum_batched(const void* keys, const void* vals, void* out
   switch (n_features) {
     case 2:
       return launch_stream<2, true>(keys, Planar<2, true>{v, m},
+                                    out, scratch, n_levels, m, n_rows, stream);
+    case 4:
+      return launch_stream<4, true>(keys, Planar<4, true>{v, m},
                                     out, scratch, n_levels, m, n_rows, stream);
     case 8:
       return launch_stream<8, true>(keys, Planar<8, true>{v, m},

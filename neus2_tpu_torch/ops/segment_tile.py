@@ -46,7 +46,7 @@ import torch
 
 from neus2_tpu_torch.utils import cuda_build
 
-_FEATURES = (2, 8)  # configs/base.json and configs/l4f8.json
+_FEATURES = (2, 4, 8)  # configs/base.json, configs/tpu_opt.json and configs/l4f8.json
 _LANE = 128  # the TPU kernel's DMA alignment, for debug_overflow_check
 PAD_IDX = 2**31 - 1  # index padding of the JAX package's batched layout
 

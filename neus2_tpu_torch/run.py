@@ -463,8 +463,10 @@ def evaluate(tb, test_transforms: str, spp: int, log, save_dir: Path | None = No
              mesh=None, mesh_shaded: bool = False) -> tuple[list, list]:
     """PSNR / SSIM on held-out views (reference run.py:251-344 protocol:
     black background, ``spp`` jittered passes, min transmittance 1e-4,
-    sRGB space), through the views' lens unless the Testbed's
-    ``render_with_camera_distortion`` is off.  A view of a mixed-size set
+    sRGB space), through the views' lens as loaded, whatever the
+    Testbed's ``render_with_camera_distortion`` (which drops only the
+    learned distortion grid, in ``_render_extras``), as the JAX package's
+    ``evaluate`` does.  A view of a mixed-size set
     renders at its true size and is scored on its true pixels only, not on
     the loader's zero padding.  ``save_dir``: each view's render | GT | 4
     |render - GT| as ``view_{i:03d}.png`` (the reference's cal_psnr image
@@ -477,7 +479,6 @@ def evaluate(tb, test_transforms: str, spp: int, log, save_dir: Path | None = No
 
     ds = load_dataset(test_transforms)
     images, cams = ds.to_device(tb.device)
-    cams = tb.render_cameras(cams)
     cfg = _eval_render_config(tb)
     psnrs, ssims = [], []
     for i in range(ds.n_images):

@@ -4,8 +4,8 @@ card against the CPU, one training step on the card against the same step
 on the CPU, a dynamic step in each phase (pose refinement, finetune) and
 the residual grid's freeze on the card against the CPU, the error
 map's deposit, rebuild and sampling on the card against the CPU and its
-deposit against itself, a native snapshot's round trip on the card, the
-rays of every camera model and the fp16 texel gather on the card against
+deposit and CDF rebuild against themselves, a native snapshot's round
+trip on the card, the rays of every camera model and the fp16 texel gather on the card against
 the CPU, bf16 compute (the encoder's backward, the MLP) on the card
 against the CPU's bf16 path, and the SDF and image fit modes' steps on the
 card against the CPU (kernel 1 in the SDF step, kernel 4 once a level in
@@ -29,8 +29,10 @@ delta within 2e-4 (a fresh Adam moves each DoF by up to the learning rate
 1e-4 either way, so a rounding-level gradient may flip one step); the
 freeze exactly (one float sum).  Error map: deposits add in no fixed order
 on the card (atomics), so within 1e-5 of the map's max; the rebuilt CDF
-within 1e-5 (a parallel scan against a sequential one); the sharpness
-update and the sampled cells exactly, uv within 1e-7.
+within 1e-5 (a parallel scan against a sequential one), and bitwise
+against itself; the sharpness update and the sampled cells exactly, uv
+within 1e-7.  The kernels run at F = 2, 4 and 8, the widths of
+configs/base.json, tpu_opt.json and l4f8.json.
 """
 
 import dataclasses
@@ -70,7 +72,7 @@ def _inputs(sizes, m, f, seed, dense_levels=()):
     return idx, upd
 
 
-@pytest.mark.parametrize("f", [2, 8])
+@pytest.mark.parametrize("f", [2, 4, 8])
 def test_kernel_matches_plain_version(cuda, f):
     sizes = [4096, 32768, 1 << 16]
     idx, upd = _inputs(sizes, 1 << 16, f, seed=f, dense_levels=(0,))
@@ -126,7 +128,7 @@ def test_kernel_wrapper_checks_its_inputs(cuda):
         segment_tile.segment_sum_rows(keys, payload, -1)
 
 
-_TILE = 2048  # updates per block of the stream body at F=2 (1024 at F=8)
+_TILE = 2048  # updates per block of the stream body at F=2 and F=4 (1024 at F=8)
 _EDGE_STREAMS = ["one_row_many_tiles", "every_second_row_empty", "inner_keys_only",
                  "pad_and_negative", "ragged_length", "shorter_than_tile", "empty_stream",
                  "unaligned", "heavy_and_light", "gaps_wider_than_a_tile"]
@@ -184,7 +186,7 @@ def _edge_levels(case, keys, vals, n_rows):
 
 
 @pytest.mark.parametrize("case", _EDGE_STREAMS)
-@pytest.mark.parametrize("f", [2, 8])
+@pytest.mark.parametrize("f", [2, 4, 8])
 @pytest.mark.parametrize("kernel", ["rows", "planar", "packed", "batched"])
 def test_stream_kernels_on_edge_streams(cuda, kernel, f, case):
     """All four kernels on the body's edge cases: every level within 1e-5
@@ -252,7 +254,7 @@ def _sorted_streams(n_levels, m, n_rows, f, seed, pad=256):
     return torch.from_numpy(idx.astype(np.int32)), torch.from_numpy(vals)
 
 
-@pytest.mark.parametrize("f", [2, 8])
+@pytest.mark.parametrize("f", [2, 4, 8])
 @pytest.mark.parametrize("kernel", ["packed", "batched", "planar"])
 def test_sorted_kernels_match_plain_versions(cuda, kernel, f):
     """Kernels 2, 3 and 4 through their entry points and their wrappers'
@@ -316,8 +318,8 @@ def test_sorted_wrappers_check_their_inputs(cuda):
     keys = torch.zeros(8, dtype=torch.int32, device=cuda)
     packed = torch.zeros((2, 1, 8), dtype=torch.int32, device=cuda)
     before = [w.launches for w in segment_tile.KERNELS]
-    with pytest.raises(ValueError):  # F = 4 is not built
-        segment_tile.segment_sum_batched_rows(keys2, torch.zeros((2, 4, 8), device=cuda), 4)
+    with pytest.raises(ValueError):  # F = 6 is not built (2, 4 and 8 are)
+        segment_tile.segment_sum_batched_rows(keys2, torch.zeros((2, 6, 8), device=cuda), 4)
     with pytest.raises(ValueError):  # packed pairs are int32
         segment_tile.segment_sum_packed_rows(keys2, packed.float(), 4)
     with pytest.raises(ValueError):  # levels disagree
@@ -567,6 +569,23 @@ def test_error_map_deposit_is_deterministic_on_card(cuda):
     first = em.deposit(state, img, uv, loss).error_map
     for _ in range(3):
         assert torch.equal(em.deposit(state, img, uv, loss).error_map, first)
+
+
+def test_error_map_cdf_rebuild_is_deterministic_on_card(cuda):
+    """The same rebuild twice on the card at base.json's size (16 images x
+    128^2 cells): ``blocked_cumsum``'s scans run in a fixed order, so the
+    two CDFs are bitwise equal, as the replicas of a data-parallel run
+    need them."""
+    from neus2_tpu_torch.engine import error_map as em
+
+    rng = np.random.default_rng(4)
+    state = _to(em.init_error_map(16, 128), cuda)
+    state = state._replace(error_map=torch.from_numpy(
+        rng.gamma(0.5, 1.0, (16, 128, 128)).astype(np.float32)).to(cuda))
+    first = em.rebuild_cdf(state).cdf
+    for _ in range(3):
+        assert torch.equal(em.rebuild_cdf(state).cdf, first)
+    assert first.shape == (16 * 128 * 128,) and float(first[-1]) == 1.0
 
 
 def test_native_snapshot_roundtrip_on_card(cuda, tmp_path):

@@ -59,7 +59,7 @@ def _setup(F, n=96, seed=0):
     return jc, tc, tables, x, rng
 
 
-@pytest.mark.parametrize("F", [2, 8])
+@pytest.mark.parametrize("F", [2, 4, 8])
 def test_encode_jac_forward(F):
     jc, tc, tables, x, _ = _setup(F)
     jf, jj = jax_make_encode_jac(jc)([jnp.asarray(t) for t in tables], jnp.asarray(x))
@@ -70,7 +70,8 @@ def test_encode_jac_forward(F):
 
 @pytest.mark.parametrize(
     "F,valid_level,with_max_level",
-    [(2, None, False), (2, 1, False), (2, None, True), (8, 2, True)],
+    [(2, None, False), (2, 1, False), (2, None, True), (8, 2, True), (4, None, False),
+     (4, 2, True)],
 )
 def test_encode_jac_vjp(F, valid_level, with_max_level):
     jc, tc, tables, x, rng = _setup(F, seed=F)
@@ -112,7 +113,7 @@ def test_table_grad_skips_position_grad_when_not_needed():
     assert tx.grad is None and all(t.grad is not None for t in tt)
 
 
-@pytest.mark.parametrize("F", [2, 8])
+@pytest.mark.parametrize("F", [2, 4, 8])
 def test_position_grad_skips_table_grad_when_no_table_trains(F, monkeypatch):
     """Pose refinement: only the positions need a gradient, so the backward
     makes no table gradient (no ``segment_dense_sum_multi`` call, no sort,

@@ -516,6 +516,34 @@ def test_evaluate_mixed_resolution_scores_true_pixels(tmp_path, monkeypatch):
     np.testing.assert_allclose(psnrs, jpsnrs, atol=1e-3)
 
 
+def test_evaluate_keeps_the_held_out_lens(tmp_path):
+    """With ``render_with_camera_distortion`` off, run.evaluate still
+    renders a Brown-Conrady held-out set through its lens, as the JAX
+    CLI's evaluate does (the flag drops only the learned distortion grid):
+    every view rendered with the file's k1-p2, and the PSNRs of both on the
+    same state carried across to 1e-3 dB, SSIMs to 1e-4."""
+    from neus2_tpu import run as jrun
+
+    path = write_depth_scene(tmp_path, with_depth=False, with_distortion=True)
+    jtb, tb = _trained_pair()
+    jtb.render_with_camera_distortion = tb.render_with_camera_distortion = False
+    lenses = []
+    real = trender.render_image
+
+    def spy(params, acc, occ, cams, *a, **kw):
+        lenses.append(None if cams.distortion is None else cams.distortion.tolist())
+        return real(params, acc, occ, cams, *a, **kw)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(trender, "render_image", spy)
+        psnrs, ssims = run.evaluate(tb, str(path), spp=1, log=lambda *a: None)
+    jpsnrs, jssims = jrun.evaluate(jtb, str(path), spp=1, log=lambda *a: None)
+    k = json.loads(path.read_text())
+    assert lenses == [pytest.approx([k["k1"], k["k2"], k["p1"], k["p2"]])] * 2
+    np.testing.assert_allclose(psnrs, jpsnrs, atol=1e-3)
+    np.testing.assert_allclose(ssims, jssims, atol=1e-4)
+
+
 def test_cli_precision_flags_and_density_png(tmp_path):
     """``--fp16_images --bf16 --save_density_png`` on a distorted scene:
     fp16 texels equal to JAX's fp16 copy, the bf16 config, finite losses,

@@ -39,11 +39,13 @@ from neus2_tpu import run as jrun
 from neus2_tpu.utils import camera_path as jcamera_path
 from neus2_tpu_torch import interop, run
 from neus2_tpu_torch.api import msgpack_codec
+from neus2_tpu_torch.api.ngp_snapshot import load_reference_snapshot, save_reference_snapshot
 from neus2_tpu_torch.utils import camera_path
 from neus2_tpu_torch.data.synthetic import make_sphere_dataset
 from neus2_tpu_torch.engine.train import TrainConfig
 from neus2_tpu_torch.models.field import FieldConfig
 from neus2_tpu_torch.ops.hashgrid import HashGridConfig
+from neus2_tpu_torch.utils.tree import tree_leaves
 
 torch.set_num_threads(2)
 
@@ -219,6 +221,49 @@ def test_cli_snapshots_resume_and_render_outputs(scene_dir):
     panels = sorted((out / "evaluation").glob("*.png"))
     assert [p.name for p in panels] == ["view_000.png", "view_001.png"]
     assert np.asarray(Image.open(panels[0])).shape == (24, 72, 3)  # render | GT | 4 |diff|
+
+
+@pytest.mark.parametrize("F", [4, 8])
+def test_cli_trains_at_wider_rows(scene_dir, tmp_path, F):
+    """``--network`` with a small JSON of tpu_opt.json's 4 or l4f8.json's
+    8 features a level: the CLI trains, meshes and evaluates; its
+    final.msgpack resumed with --no_train holds every leaf bitwise and
+    evaluates to the same metrics; the reference-format export of its
+    params reloads to the same tables up to fp16 and into a Testbed."""
+    d, test = scene_dir
+    net = dict(NETWORK, encoding=dict(NETWORK["encoding"], n_levels=3, n_features_per_level=F))
+    (tmp_path / "net.json").write_text(json.dumps(net))
+    common = ["--scene", str(d / "train" / "transforms.json"), "--network",
+              str(tmp_path / "net.json"), "--output_dir", str(tmp_path / "out"), "--n_rays",
+              "256", "--samples_per_ray", "16", "--test_transforms", str(test), "--eval_spp",
+              "1", "--device", "cpu"]
+    tb = run.main([*common, "--name", "wide", "--n_steps", "8", "--save_mesh",
+                   "--mesh_resolution", "32"])
+    assert tb.training_step == 8 and tb.config.field.grid.n_features_per_level == F
+    assert [tuple(t.shape) for t in tb.state.params["hashgrid"]] == [
+        (s, F) for s in tb.config.field.grid.level_tables()[3]]
+    out = tmp_path / "out" / "wide"
+    assert (out / "mesh" / "mesh.obj").exists()
+    trained = json.loads((out / "metrics.json").read_text())
+    assert all(np.isfinite(trained["psnr"]))
+
+    tb2 = run.main([*common, "--name", "resumed", "--snapshot",
+                    str(out / "checkpoints" / "final.msgpack"), "--no_train"])
+    for a, b in zip(tree_leaves(tb.state.params), tree_leaves(tb2.state.params)):
+        assert torch.equal(a, b)
+    assert json.loads((tmp_path / "out" / "resumed" / "metrics.json").read_text()) == trained
+
+    ref = tmp_path / "ref.msgpack"
+    ema = interop.tree_to_numpy(tb.state.ema_params)
+    save_reference_snapshot(ref, ema, tb.config.field,
+                            density_grid=tb.state.occupancy.density.numpy())
+    back = load_reference_snapshot(ref)
+    assert back["config"].grid == tb.config.field.grid
+    for ours, theirs in zip(ema["hashgrid"], back["params"]["hashgrid"]):
+        np.testing.assert_array_equal(ours.astype("<f2").astype(np.float32), theirs)
+    tb2.load_snapshot(ref)
+    assert [tuple(t.shape) for t in tb2.state.params["hashgrid"]] == [
+        tuple(t.shape) for t in tb.state.params["hashgrid"]]
 
 
 def test_jax_cli_snapshot_evaluated_by_port_cli(scene_dir):

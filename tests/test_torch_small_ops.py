@@ -6,8 +6,9 @@ frequency, Hann-window, OneBlob and triangle-wave encodings
 ``unwarp_dt`` (``ops/warp.py``); ``hashgrid_encode`` with its table and
 position gradients on a carried-across table (``ops/hashgrid.py``);
 ``StepEma`` and ``trace`` (``utils/meters.py``); ``sample_training_rays``
-with the JAX draws (``engine/rays.py``) and ``blocked_cumsum``
-(``engine/error_map.py``).
+with the JAX draws (``engine/rays.py``), ``blocked_cumsum``
+(``engine/error_map.py``) and ``flagship_grid`` (``utils/variants.py``),
+field for field.
 
 Tolerances, fp32 on the CPU: elementwise functions within 1e-6 relative
 (libm's and XLA's transcendentals may differ by an ulp, and XLA may fuse a
@@ -19,6 +20,7 @@ gradients, sums in another order) within 1e-6 of the reference's max
 magnitude.
 """
 
+import dataclasses
 import json
 import math
 
@@ -36,6 +38,7 @@ from neus2_tpu.ops import losses as jl
 from neus2_tpu.ops import sh as jsh
 from neus2_tpu.ops import warp as jw
 from neus2_tpu.utils import meters as jmeters
+from neus2_tpu.utils import variants as jvariants
 from neus2_tpu_torch import interop
 from neus2_tpu_torch.data.synthetic import make_sphere_dataset
 from neus2_tpu_torch.engine import error_map as tem
@@ -44,7 +47,9 @@ from neus2_tpu_torch.ops import hashgrid as thg
 from neus2_tpu_torch.ops import losses as tl
 from neus2_tpu_torch.ops import sh as tsh
 from neus2_tpu_torch.ops import warp as tw
+from neus2_tpu_torch.api.testbed import config_from_json
 from neus2_tpu_torch.utils import meters as tmeters
+from neus2_tpu_torch.utils import variants as tvariants
 
 torch.set_num_threads(2)
 RNG = np.random.default_rng(0)
@@ -218,3 +223,29 @@ def test_blocked_cumsum_matches_jax(n):
     got = tem.blocked_cumsum(torch.from_numpy(x), block=4096)
     _close(got, jem.blocked_cumsum(jnp.asarray(x), block=4096))
     _close(got, np.cumsum(x.astype(np.float64)), rel=1e-5)
+
+
+# The level-unlock schedule, which a variant leaves at its default:
+# tpu_opt.json unlocks at 0.04 a step where the variant keeps 0.02.
+_SCHEDULE = ("valid_level_scale", "base_valid_level_scale", "base_training_step")
+
+
+@pytest.mark.parametrize("variant, json_name", [("parity", "base.json"),
+                                                ("tpu_opt", "tpu_opt.json"),
+                                                ("l4f8", "l4f8.json")])
+def test_flagship_grid_matches_jax_and_its_config(variant, json_name):
+    """The port's ``flagship_grid`` is the JAX package's field for field,
+    and the grid ``config_from_json`` reads from the matching JSON in every
+    field of the table's shape (the level tables equal too); the unlock
+    schedule agrees but for tpu_opt.json's own valid_level_scale."""
+    got = dataclasses.asdict(tvariants.flagship_grid(variant))
+    assert got == dataclasses.asdict(jvariants.flagship_grid(variant))
+    assert tvariants.FLAGSHIP_VARIANTS == jvariants.FLAGSHIP_VARIANTS
+    grid = config_from_json(f"configs/{json_name}")[0].field.grid
+    from_json = dataclasses.asdict(grid)
+    assert {k: v for k, v in got.items() if k not in _SCHEDULE} == {
+        k: v for k, v in from_json.items() if k not in _SCHEDULE}
+    assert tvariants.flagship_grid(variant).level_tables() == grid.level_tables()
+    differ = {k for k in _SCHEDULE if got[k] != from_json[k]}
+    assert differ == ({"valid_level_scale"} if variant == "tpu_opt" else set())
+    assert tvariants.flagship_grid(None) == tvariants.flagship_grid("parity")
