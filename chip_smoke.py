@@ -77,6 +77,25 @@ runs them, with the launch counts set to 0 just before and read just after:
     global rays/s), ZeRO-1 against replicated, and a ZeRO-1 snapshot
     loaded into a replicated Testbed.
 
+  * ``cascade_phase``: scenes larger than the unit cube through the same
+    paths: the static Testbed at the same width on an aabb_scale-4 scene
+    of two spheres, one outside the unit cube (3 occupancy cascades,
+    candidates spaced by the cone angle, the warp-metric dt), held to
+    tests/test_cascades.py's bars after the prior sweep, 300 and 900 steps
+    (kernel 1 once a step), with its held-out views, mesh and snapshots,
+    one step on the card against the CPU, the CLI on the scene's files and
+    50 steps at aabb_scale 16 (5 cascades);
+  * ``quality_ab_phase``: tests/test_compaction.py's A/Bs at the same width,
+    300 Testbed steps an arm, on held-out PSNR and the sphere's |sdf|:
+    ``hit_oversample`` 2 against 1, held to the tests' bars, and the mask
+    loss 0.1 against 0, at base.json's eikonal weight and at the tests'
+    0.1, printed against the same bars (it misses them at this width).
+
+Before the kernel phases, one ``provenance`` line names the machine
+(library versions, NVIDIA driver, SM count, visible cards, host CPU) beside
+hashes of three computations, to tell machines apart by the last bits of
+a run; ``python3 chip_smoke.py --provenance`` prints that line and stops.
+
 Exits non-zero on any failure; the last line of a successful run is the
 device JSON, the line before it the ``kernels`` JSON.
 """
@@ -84,7 +103,9 @@ device JSON, the line before it the ``kernels`` JSON.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -152,10 +173,48 @@ PARALLEL_EQUAL_STEPS = 20  # parallel_phase (a) and (c)
 PARALLEL_STEPS = 200  # parallel_phase (b)
 PARALLEL_PROFILE_AT = 100
 PARALLEL_SNAPSHOT_STEPS = 10  # parallel_phase (d)
+# cascade_phase: tests/test_cascades.py's scene (its 64^2 images at the
+# other phases' SCENE_RES) and its bars.
+CASCADE_SPHERES = (((0.5, 0.5, 0.5), 0.25), ((1.25, 0.5, 0.5), 0.3))
+CASCADE_VIEWS = 14
+CASCADE_CAM_DISTANCE = 2.6
+CASCADE_INIT_RADIUS = 0.2  # the tests' documented knob for scenes of several cascades
+CASCADE_STEPS = (300, 900)  # test_aabb_scale4_scene_trains, ..._outer_sphere_converges
+CASCADE_OCC_BAR = 0.5
+CASCADE_SDF_BARS = (0.2, 0.022)
+CASCADE_SPLIT_X = 0.95  # between the spheres: the mesh has vertices on both sides
+# cascade_step_vs_cpu's bounds: the loss's relative difference, and the
+# table and MLP gradients within this share of their max, as
+# field_agrees_with_cpu bounds the field's.
+CASCADE_STEP_LIMITS = (1e-4, 1e-2, 1e-3)
+CASCADE_CLI_STEPS = 100
+CASCADE16_STEPS = 50
+# quality_ab_phase: tests/test_compaction.py's arms (hit_oversample, mask
+# loss weight, eikonal weight: None keeps base.json's) and bars, at its 300
+# steps.  A against B (compaction) is gated; B against C (the mask loss),
+# and B1 against C1 at tests/e2e_drive.py's eikonal weight 0.1, are printed
+# against the same bars and not gated: at this width the mask loss misses
+# them at either weight (PERF.md; ROADMAP.md Queue 3).
+QUALITY_AB_ARMS = {"A": (2, 0.1, None), "B": (1, 0.1, None), "C": (1, 0.0, None),
+                   "B1": (1, 0.1, 0.1), "C1": (1, 0.0, 0.1)}
+QUALITY_AB_PAIRS = {"compaction": ("A", "B"), "mask_loss": ("B", "C"),
+                    "mask_loss_ek_0.1": ("B1", "C1")}
+QUALITY_AB_GATED = ("compaction",)
+QUALITY_AB_STEPS = 300
+QUALITY_AB_PSNR_MARGIN = 1.5
+QUALITY_AB_SDF_FACTOR = 1.5
 # The batched layouts' index padding past each level's M updates, as the
 # JAX package pads them (round_up(M, 128) + 2 * chunk).
 STREAM_PAD = 4096
 HOLD_CYCLES = 40_000_000  # ~20 ms of spinning at the H100's clock (cuda_ms's hold)
+
+
+def sha256_of(tensors) -> str:
+    """SHA-256 of the tensors' bytes, in order, as the host reads them."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
 
 
 def fail(msg: str) -> int:
@@ -585,14 +644,12 @@ class LossRecorder:
 
 def fresh_testbed(tb):
     """A new card Testbed of ``tb``'s config, hyperparameters and seed on
-    the 16-view SCENE_RES^2 sphere scene, untrained."""
+    ``tb``'s scene, untrained."""
     from neus2_tpu_torch.api.testbed import Testbed
-    from neus2_tpu_torch.data.synthetic import make_sphere_dataset
 
     t = Testbed(config=tb.config, hyper=dataclasses.replace(tb.hyper), seed=tb.seed,
                 device="cuda")
-    t.load_training_data_from_datasets([make_sphere_dataset(n_views=16, resolution=SCENE_RES,
-                                                            seed=0)])
+    t.load_training_data_from_datasets([tb.dataset])
     return t
 
 
@@ -1282,7 +1339,9 @@ def write_lens_scene(out_dir: Path, model: str, n_views: int, res: int, seed: in
 def run_testbed(torch, st, tb, profile_at: int | None = None, on_step=None) -> dict:
     """``while tb.frame()`` with kernel 1's launches read a step, each
     step's loss kept (no host sync) and ``on_step(tb)`` called after each
-    step.  Host ms a step over the steps after WARMUP_STEPS, the traced
+    step; a Testbed trained before goes on from its step, and the steps
+    counted are this run's.  Host ms a step over the steps after the
+    first WARMUP_STEPS, the traced
     ones and the trace's analysis left out; with ``profile_at``, host ms a step over PROFILE_WINDOW
     steps from that step, then device ms, device kernel launches and the
     top kernels a step over as many traced.  The loss reads are those of
@@ -1293,13 +1352,13 @@ def run_testbed(torch, st, tb, profile_at: int | None = None, on_step=None) -> d
     from neus2_tpu_torch.api import testbed as testbed_mod
 
     launches_after, prof, out = [], None, {}
-    traced_s, t_warm = 0.0, None
+    traced_s, t_warm, first = 0.0, None, tb.training_step
     torch.cuda.synchronize()
     reset_launches(st)
     t_start = time.perf_counter()
     with LossRecorder(testbed_mod) as rec:
         while True:
-            if tb.training_step == WARMUP_STEPS:
+            if tb.training_step == first + WARMUP_STEPS:
                 torch.cuda.synchronize()
                 t_warm = time.perf_counter()
             if tb.training_step == profile_at:
@@ -1336,7 +1395,7 @@ def run_testbed(torch, st, tb, profile_at: int | None = None, on_step=None) -> d
     torch.cuda.synchronize()
     t_end = time.perf_counter()
     out["wall_s"] = t_end - t_start
-    steps = tb.training_step
+    steps = tb.training_step - first
     timed = steps - WARMUP_STEPS - (PROFILE_WINDOW if traced_s else 0)
     if t_warm is not None and timed > 0:
         out["ms_per_step"] = (t_end - t_warm - traced_s) * 1e3 / timed
@@ -1449,17 +1508,18 @@ def lens_phase(torch, st, cfg, hyper, static: dict, pinhole: dict) -> dict:
     return out
 
 
-def held_out_views(torch, tb, what: str) -> list:
-    """The two held-out views of camera seed 1 (16-view 256^2 sphere
-    scene) rendered at the eval protocol (spp 8, black background, min
-    transmittance 1e-4) and scored -> per view {psnr, ssim, black_psnr,
-    render_ms}.  Fails unless each render is finite and beats the
-    all-black image."""
+def held_out_views(torch, tb, what: str, held=None) -> list:
+    """The views of ``held`` (by default the two held-out views of camera
+    seed 1 of the 256^2 sphere scene) rendered at the eval protocol (spp
+    8, black background, min transmittance 1e-4) and scored -> per view
+    {psnr, ssim, black_psnr, render_ms}.  Fails unless each render is
+    finite and beats the all-black image."""
     from neus2_tpu_torch.data.synthetic import make_sphere_dataset
     from neus2_tpu_torch.engine.render import RenderConfig, render_image
     from neus2_tpu_torch.ops.image import psnr, srgb_eval_target, ssim
 
-    held = make_sphere_dataset(n_views=2, resolution=SCENE_RES, seed=1)
+    if held is None:
+        held = make_sphere_dataset(n_views=2, resolution=SCENE_RES, seed=1)
     images, cams = held.to_device("cuda")
     rcfg = RenderConfig(field=tb.config.field, aabb_scale=tb.config.aabb_scale,
                         min_transmittance=1e-4)
@@ -1630,6 +1690,26 @@ def grads_agree(torch, card, cpu, n_tables: int, limits: tuple, what: str) -> di
     return worst
 
 
+def sdf_step(torch, device: str):
+    """The SDF mode's step check at full width (``default_sdf_field``,
+    params of seed 0) on ``device``: the fit loss on 2^16 points of the
+    CSG scene (seed 4) -> (loss, gradient tree)."""
+    import numpy as np
+
+    from neus2_tpu_torch.data.synthetic import csg_sdf
+    from neus2_tpu_torch.engine import sdf_mode
+    from neus2_tpu_torch.utils.tree import tree_map
+
+    cfg = sdf_mode.SdfFitConfig()
+    params, _ = sdf_mode.init_sdf_fit(cfg, seed=0, device="cpu")
+    pts = torch.rand((cfg.batch_size, 3), generator=torch.Generator().manual_seed(4))
+    target = torch.from_numpy(csg_sdf(pts.numpy()).astype(np.float32))
+    x, y = pts.to(device), target.to(device)
+    return sdf_mode.value_and_grads(
+        lambda p: sdf_mode.fit_loss(sdf_mode.sdf_fn(p, x, cfg.field)[0], y, cfg.loss),
+        tree_map(lambda t: t.to(device), params))
+
+
 def write_csg_mesh(path: Path, res: int) -> int:
     """``csg_sdf`` on a res^3 lattice of cell centres of the unit cube,
     through the port's marching cubes, normalized and written as an OBJ;
@@ -1668,33 +1748,22 @@ def sdf_phase(torch, st) -> dict:
     import numpy as np
 
     from neus2_tpu_torch import run
-    from neus2_tpu_torch.data.synthetic import csg_sdf
     from neus2_tpu_torch.engine import sdf_mode
-    from neus2_tpu_torch.utils.tree import tree_map
+    from neus2_tpu_torch.utils.tree import tree_leaves
 
     cfg = sdf_mode.SdfFitConfig()
     kernel = kernel_phase(torch, st, cfg, 2, m=cfg.batch_size * 8, label="sdf_kernel_phase")
 
-    params, _ = sdf_mode.init_sdf_fit(cfg, seed=0, device="cpu")
-    g = torch.Generator().manual_seed(4)
-    pts = torch.rand((cfg.batch_size, 3), generator=g)
-    target = torch.from_numpy(csg_sdf(pts.numpy()).astype(np.float32))
-
-    def grads(device):
-        x, y = pts.to(device), target.to(device)
-        return sdf_mode.value_and_grads(
-            lambda p: sdf_mode.fit_loss(sdf_mode.sdf_fn(p, x, cfg.field)[0], y, cfg.loss),
-            tree_map(lambda t: t.to(device), params))
-
     launches = segment_sum_launches()
-    (card_loss, card), (cpu_loss, cpu) = grads("cuda"), grads("cpu")
+    (card_loss, card), (cpu_loss, cpu) = sdf_step(torch, "cuda"), sdf_step(torch, "cpu")
     if segment_sum_launches() != launches + 1:
         raise AssertionError("sdf step check: the card's backward skipped kernel 1")
     loss_rel = abs(float(card_loss) - float(cpu_loss)) / abs(float(cpu_loss))
     if loss_rel > 1e-4:
         raise AssertionError(f"sdf step check: loss {float(card_loss)} vs {float(cpu_loss)}")
     vs_cpu = {"loss_rel": loss_rel,
-              **grads_agree(torch, card, cpu, cfg.field.grid.n_levels, (1e-2, 1e-3), "sdf step")}
+              **grads_agree(torch, card, cpu, cfg.field.grid.n_levels, (1e-2, 1e-3), "sdf step"),
+              "card_sha256": sha256_of([card_loss, *tree_leaves(card)])}
 
     # The BVH's library is built at first use: build it outside the timed
     # BVH build.
@@ -1743,6 +1812,7 @@ def sdf_phase(torch, st) -> dict:
         **rec.out, "iou": res["iou"], "surface_abs_sdf": surface_abs,
         "render_512_ms": render_s[0] * 1e3, "mesh_triangles_out": int(len(res["sdf_mesh"][1])),
         "step_vs_cpu": vs_cpu, "kernel": kernel,
+        "params_sha256": sha256_of(tree_leaves(res["params"])),
     }
     print("sdf_phase " + json.dumps(out), flush=True)
     if not (res["iou"] > SDF_IOU_BAR and surface_abs < 0.01):
@@ -1965,13 +2035,468 @@ def mesh_outputs_phase(torch, tb) -> dict:
     return out
 
 
+def cascade_scene(n_views: int, seed: int, aabb_scale: int = 4):
+    """tests/test_cascades.py's scene at SCENE_RES^2: a sphere in the unit
+    cube and one outside it (CASCADE_SPHERES), cameras at distance 2.6."""
+    import numpy as np
+
+    from neus2_tpu_torch.data.synthetic import make_multi_sphere_dataset
+
+    return make_multi_sphere_dataset(
+        [(np.array(c, np.float32), r) for c, r in CASCADE_SPHERES], n_views=n_views,
+        resolution=SCENE_RES, cam_distance=CASCADE_CAM_DISTANCE, seed=seed,
+        aabb_scale=aabb_scale)
+
+
+def outer_sphere_reads(torch, tb) -> dict:
+    """tests/test_cascades.py's two reads of the outer sphere: the share of
+    24 points on its xz great circle that ``occupancy_at`` marks occupied,
+    and the EMA field's mean |sdf| over 32 points on its xy great circle."""
+    import numpy as np
+
+    from neus2_tpu_torch.engine.occupancy import occupancy_at
+    from neus2_tpu_torch.models.field import sdf_fn
+    from neus2_tpu_torch.ops.warp import scene_aabb, warp_position
+
+    (centre, radius) = CASCADE_SPHERES[1]
+    ring_t = np.linspace(0, 2 * np.pi, 24, endpoint=False)
+    ring = np.array(centre) + radius * np.stack(
+        [np.cos(ring_t), np.zeros_like(ring_t), np.sin(ring_t)], -1)
+    circle_t = np.linspace(0, 2 * np.pi, 32, endpoint=False)
+    circle = np.array(centre) + radius * np.stack(
+        [np.cos(circle_t), np.sin(circle_t), np.zeros_like(circle_t)], -1)
+    ring, circle = (torch.tensor(a, dtype=torch.float32, device="cuda") for a in (ring, circle))
+    box = scene_aabb(tb.config.aabb_scale)
+    with torch.no_grad():
+        sdf, _ = sdf_fn(tb.state.ema_params, warp_position(circle, box), tb.config.field)
+    return {"ring_occupied": float(occupancy_at(tb.state.occupancy, ring).float().mean()),
+            "outer_abs_sdf": float(sdf.abs().mean())}
+
+
+def cascade_train(torch, st, cfg, hyper) -> tuple[dict, object]:
+    """(a)-(c) of cascade_phase: the aabb_scale-4 Testbed's derived config,
+    its prior sweep (seconds, peak memory, the outer ring's occupancy), then
+    CASCADE_STEPS[0] steps with a traced window and CASCADE_STEPS[1] in
+    all, the outer sphere read after each -> (numbers, the Testbed)."""
+    from neus2_tpu_torch.api import testbed as testbed_mod
+    from neus2_tpu_torch.api.testbed import Testbed
+
+    first, last = CASCADE_STEPS
+    tb = Testbed(config=cfg, seed=0, device="cuda",
+                 hyper=dataclasses.replace(hyper, first_frame_max_training_step=first))
+    sweep_s = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with Patched(testbed_mod, "occupancy_prior_sweep", host_timer(torch, sweep_s)):
+        tb.load_training_data_from_datasets([cascade_scene(CASCADE_VIEWS, seed=0)])
+    c = tb.config
+    derived = {"aabb_scale": c.aabb_scale, "occ_cascades": c.occ_cascades,
+               "n_candidates": c.n_candidates, "occ_n_probe": c.occ_n_probe,
+               "cone_angle": c.cone_angle}
+    if (c.aabb_scale, c.occ_cascades, c.n_candidates, c.occ_n_probe) != (4, 3, 512, 1 << 17):
+        raise AssertionError(f"cascade phase: derived config {derived}")
+    out = {"derived": derived, "prior_sweep_s": sweep_s[0],
+           "prior_sweep_updates": tb.state.occupancy.ema_step,
+           "prior_sweep_peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "after_sweep": outer_sphere_reads(torch, tb)}
+    if not out["after_sweep"]["ring_occupied"] > CASCADE_OCC_BAR:
+        raise AssertionError(f"cascade phase: the prior sweep left the outer sphere "
+                             f"unoccupied {out['after_sweep']}")
+    torch.cuda.reset_peak_memory_stats()
+    out["first"] = run_testbed(torch, st, tb, TESTBED_PROFILE_AT)
+    out["at_first"] = outer_sphere_reads(torch, tb)
+    if not (out["at_first"]["ring_occupied"] > CASCADE_OCC_BAR
+            and out["at_first"]["outer_abs_sdf"] < CASCADE_SDF_BARS[0]):
+        raise AssertionError(f"cascade phase: after {first} steps {out['at_first']}")
+    tb.first_frame_max_training_step = last
+    out["rest"] = run_testbed(torch, st, tb)
+    out["at_last"] = outer_sphere_reads(torch, tb)
+    out["train_peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print("cascade_phase train " + json.dumps(out), flush=True)
+    if not out["at_last"]["outer_abs_sdf"] < CASCADE_SDF_BARS[1]:
+        raise AssertionError(f"cascade phase: after {last} steps {out['at_last']}")
+    return out, tb
+
+
+def cascade_outputs(torch, tb) -> dict:
+    """(d) of cascade_phase: the held-out views, the mesh over the
+    aabb_scale-4 box with both spheres in it, a native snapshot round trip
+    (every leaf bitwise, the 3 cascades restored) and a reference-format
+    one (byte-equal blobs, a density grid of 3 x 128^3 cells)."""
+    from neus2_tpu_torch.api import msgpack_codec
+    from neus2_tpu_torch.ops.warp import scene_aabb
+
+    tb.prepare_for_test()
+    views = held_out_views(torch, tb, "cascade phase", held=cascade_scene(2, seed=1))
+    box = scene_aabb(tb.config.aabb_scale)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        verts, tris = tb.compute_and_save_marching_cubes_mesh(Path(d) / "mesh.ply",
+                                                              resolution=MESH_RES)
+        mesh_s = time.perf_counter() - t0
+        world_x = box.lo[0] + verts[:, 0] * box.diag[0]
+        sides = (int((world_x < CASCADE_SPLIT_X).sum()), int((world_x > CASCADE_SPLIT_X).sum()))
+        full = Path(d) / "full.msgpack"
+        tb.save_snapshot(full)
+        resumed = fresh_testbed(tb)
+        resumed.load_snapshot(full)
+        n_leaves = same_leaves(tb, resumed, "cascade phase: native round trip")
+        cascades = (resumed.config.occ_cascades, resumed.state.occupancy.n_cascades)
+        del resumed
+        snap_mb = full.stat().st_size / 1e6
+        ref, imported = reference_round_trip(torch, tb, Path(d))
+        del imported
+        doc = msgpack_codec.unpackb((Path(d) / "ref.msgpack").read_bytes())["snapshot"]
+    grid_cells = len(doc["density_grid_binary"]) // 2  # fp16
+    out = {"views": views, "mesh_triangles": int(len(tris)), "mesh_s": mesh_s,
+           "mesh_vertices_by_side": sides, "snapshot_leaves": n_leaves,
+           "snapshot_cascades": cascades, "snapshot_mb": snap_mb,
+           "reference_n_params": ref["n_params"], "reference_density_cells": grid_cells}
+    print("cascade_phase outputs " + json.dumps(out), flush=True)
+    if len(tris) <= 1000 or min(sides) == 0:
+        raise AssertionError(f"cascade phase: mesh {len(tris)} triangles, {sides} vertices "
+                             f"on each side of x = {CASCADE_SPLIT_X}")
+    if cascades != (3, 3) or grid_cells != 3 * 128**3:
+        raise AssertionError(f"cascade phase: snapshot cascades {cascades}, reference "
+                             f"density grid of {grid_cells} cells")
+    return out
+
+
+def cascade_step_vs_cpu(torch, tb) -> dict:
+    """(e) of cascade_phase: one step's loss and gradients on the card and
+    on the CPU from the trained state and the same draws, within
+    CASCADE_STEP_LIMITS; and where the candidate probes land: the share
+    whose cascade (``mip_from_pos``) differs between the devices, from each
+    device's own positions and from the card's positions alone, the share
+    whose occupancy differs, and the largest relative difference of the
+    exponentially spaced candidate starts."""
+    from neus2_tpu_torch import interop
+    from neus2_tpu_torch.engine import occupancy as occ
+    from neus2_tpu_torch.engine import train as tt
+    from neus2_tpu_torch.engine.march import coarse_intervals
+    from neus2_tpu_torch.engine.rays import rays_from_pixels
+    from neus2_tpu_torch.models.delta import apply_accumulated_to_rays
+
+    cfg = tb.config
+    draws = tt.sample_step_draws(torch.Generator(device="cuda").manual_seed(5), cfg,
+                                 tb.cameras.n_images)
+    cpu_state, _ = interop.state_from_pathdict(
+        interop.state_to_pathdict(tb.state), tt.init_train_state(cfg, tb.cameras.n_images,
+                                                                 device="cpu"))
+    on = {"card": (tb.state, tb.images, tb.cameras, draws),
+          "host": (cpu_state, tb.images.cpu(), tb.cameras._replace(**{
+              k: v.cpu() for k, v in tb.cameras._asdict().items() if torch.is_tensor(v)}),
+                   draws.to("cpu"))}
+
+    def probes(state, images, cams, d):
+        o, dirs, _, _ = rays_from_pixels(cams, images, d.img_idx, d.uv0)
+        o, dirs = apply_accumulated_to_rays(state.acc, o, dirs)
+        tmin, tmax = cfg.aabb().ray_intersect(o, dirs)
+        t0, dt = coarse_intervals(torch.clamp_min(tmin, cfg.near), tmax, cfg.n_candidates,
+                                  cfg.cone_angle)
+        pos = o[:, None, :] + (t0 + d.probe_u * dt)[..., None] * dirs[:, None, :]
+        return t0, pos
+
+    launches = segment_sum_launches()
+    res = {}
+    for where, (state, images, cams, d) in on.items():
+        grads, aux, _ = tt.loss_and_grads({"params": state.params}, state, images, cams, d, cfg)
+        res[where] = (aux.loss, grads["params"], *probes(state, images, cams, d))
+    if segment_sum_launches() != launches + 1:
+        raise AssertionError("cascade step check: the card's backward skipped kernel 1")
+    (loss_g, grads_g, t0_g, pos_g), (loss_c, grads_c, t0_c, pos_c) = res["card"], res["host"]
+    top = cfg.occ_cascades - 1
+    mip_g = occ.mip_from_pos(pos_g, top).cpu()
+    cpu_occ = cpu_state.occupancy
+    out = {
+        "loss_rel": abs(float(loss_g) - float(loss_c)) / abs(float(loss_c)),
+        **grads_agree(torch, grads_g, grads_c, cfg.field.grid.n_levels,
+                      CASCADE_STEP_LIMITS[1:], "cascade step"),
+        "probes": pos_c.shape[0] * pos_c.shape[1],
+        "cascade_differs_share": float((mip_g != occ.mip_from_pos(pos_c, top)).float().mean()),
+        "cascade_differs_share_same_positions": float(
+            (mip_g != occ.mip_from_pos(pos_g.cpu(), top)).float().mean()),
+        "occupancy_differs_share": float(
+            (occ.occupancy_at(tb.state.occupancy, pos_g).cpu()
+             != occ.occupancy_at(cpu_occ, pos_c)).float().mean()),
+        "candidate_t0_max_rel_diff": float(((t0_g.cpu() - t0_c).abs() / t0_c.abs()).max()),
+        "position_max_abs_diff": float((pos_g.cpu() - pos_c).abs().max()),
+    }
+    print("cascade_phase step_vs_cpu " + json.dumps(out), flush=True)
+    if out["loss_rel"] > CASCADE_STEP_LIMITS[0]:
+        raise AssertionError(f"cascade step check: loss {float(loss_g)} vs {float(loss_c)}")
+    return out
+
+
+def cascade_cli(torch, st) -> dict:
+    """(f) of cascade_phase: the scene written with ``save_dataset_na`` at
+    aabb_scale 4 (and its two held-out views) and trained through the CLI
+    with ``configs/base.json`` for CASCADE_CLI_STEPS steps with
+    ``--save_mesh`` and eval: kernel 1 once a step, 3 cascades, the mesh
+    and finite metrics."""
+    import numpy as np
+
+    from neus2_tpu_torch import run
+    from neus2_tpu_torch.data.export import save_dataset_na
+
+    with tempfile.TemporaryDirectory() as d:
+        train = save_dataset_na(cascade_scene(CASCADE_VIEWS, seed=0), Path(d) / "train")
+        test = save_dataset_na(cascade_scene(2, seed=1), Path(d) / "test")
+        torch.cuda.synchronize()
+        reset_launches(st)
+        t0 = time.perf_counter()
+        tb = run.main(["--scene", str(train), "--network", str(REPO / "configs" / "base.json"),
+                       "--n_steps", str(CASCADE_CLI_STEPS), "--save_mesh", "--test_transforms",
+                       str(test), "--output_dir", d, "--name", "cascade"])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = st.segment_sum_rows.launches
+        metrics = json.loads((Path(d) / "cascade" / "metrics.json").read_text())
+        mesh_ok = (Path(d) / "cascade" / "mesh" / "mesh.obj").exists()
+    out = {"steps": tb.training_step, "launches": launches, "wall_s": wall_s,
+           "occ_cascades": tb.config.occ_cascades, "psnr": metrics["psnr"],
+           "ssim_mean": metrics["ssim_mean"], "mesh_written": mesh_ok}
+    print("cascade_phase cli " + json.dumps(out), flush=True)
+    if (tb.training_step, launches, tb.config.occ_cascades) != (CASCADE_CLI_STEPS,) * 2 + (3,):
+        raise AssertionError(f"cascade phase CLI: {out}")
+    if not (mesh_ok and np.isfinite(metrics["psnr"]).all()):
+        raise AssertionError(f"cascade phase CLI: outputs {out}")
+    return out
+
+
+def cascade16(torch, st, cfg, hyper) -> dict:
+    """(g) of cascade_phase: the scene saved at aabb_scale 16 (5 cascades,
+    512 candidates) and loaded from its files: the prior sweep's seconds
+    and peak memory, then CASCADE16_STEPS Testbed steps, kernel 1 once a
+    step and every loss finite."""
+    from neus2_tpu_torch.api import testbed as testbed_mod
+    from neus2_tpu_torch.api.testbed import Testbed
+    from neus2_tpu_torch.data.export import save_dataset_na
+    from neus2_tpu_torch.engine import occupancy as occ
+
+    tb = Testbed(config=cfg, hyper=dataclasses.replace(
+        hyper, first_frame_max_training_step=CASCADE16_STEPS), seed=0, device="cuda")
+    sweep_s = []
+    with tempfile.TemporaryDirectory() as d:
+        path = save_dataset_na(cascade_scene(CASCADE_VIEWS, seed=0, aabb_scale=16), Path(d))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with Patched(testbed_mod, "occupancy_prior_sweep", host_timer(torch, sweep_s)):
+            tb.load_training_data(path)
+    c = tb.config
+    out = {"aabb_scale": c.aabb_scale, "occ_cascades": c.occ_cascades,
+           "n_candidates": c.n_candidates, "occ_n_probe": c.occ_n_probe,
+           "prior_sweep_s": sweep_s[0], "prior_sweep_updates": tb.state.occupancy.ema_step,
+           "prior_sweep_peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    if (c.aabb_scale, c.occ_cascades, c.n_candidates) != (16, 5, 512):
+        raise AssertionError(f"cascade phase aabb 16: derived config {out}")
+    run_out = run_testbed(torch, st, tb)
+    out.update({k: run_out[k] for k in ("steps", "launches", "loss_first", "loss_last",
+                                        "ms_per_step", "wall_s")})
+    out["update_bitfield_ms"] = cuda_ms(
+        torch, lambda: occ.update_bitfield(tb.state.occupancy), iters=10)
+    print("cascade_phase aabb16 " + json.dumps(out), flush=True)
+    return out
+
+
+def cascade_phase(torch, st, cfg, hyper, testbed: dict) -> dict:
+    """Scenes larger than the unit cube at full base.json width, with one
+    departure, tests/test_cascades.py's ``init_radius`` 0.2 (the geometric
+    init's sphere reaches both of the scene's spheres):
+
+      (a)-(c) ``cascade_train``: the aabb_scale-4 Testbed (3 cascades, 512
+          exponentially spaced candidates) after its prior sweep, after
+          CASCADE_STEPS[0] steps (kernel 1 once a step; host and device ms
+          and device launches a step over a traced window, beside the
+          Testbed phase's ``testbed``) and after CASCADE_STEPS[1]: the
+          outer sphere's ring occupancy and |sdf| against
+          tests/test_cascades.py's bars;
+      (d) ``cascade_outputs``: held-out views, mesh, snapshots;
+      (e) ``cascade_step_vs_cpu``: one step on the card against the CPU;
+      then ``update_bitfield`` and one ``occupancy_update`` timed at 3
+      cascades;
+      (f) ``cascade_cli``: the CLI on the scene's files;
+      (g) ``cascade16``: the scene at aabb_scale 16.
+
+    Fails at the first gate missed."""
+    from neus2_tpu_torch.engine import occupancy as occ
+    from neus2_tpu_torch.engine import train as tt
+
+    print(f"cascade_phase departures from base.json: init_radius {CASCADE_INIT_RADIUS}",
+          flush=True)
+    cfg = dataclasses.replace(cfg, field=dataclasses.replace(cfg.field,
+                                                             init_radius=CASCADE_INIT_RADIUS))
+    out, tb = cascade_train(torch, st, cfg, hyper)
+    keys = ("host_ms_per_step", "device_ms_per_step", "device_launches_per_step")
+    out["testbed_phase"] = {k: testbed[k] for k in keys}
+    out["outputs"] = cascade_outputs(torch, tb)
+    out["step_vs_cpu"] = cascade_step_vs_cpu(torch, tb)
+    jitter = torch.rand((tb.config.occ_n_probe, 3), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(6))
+    out["update_bitfield_ms"] = cuda_ms(torch, lambda: occ.update_bitfield(tb.state.occupancy),
+                                        iters=10)
+    out["occupancy_update_ms"] = cuda_ms(
+        torch, lambda: tt.occupancy_update(tb.state, tb.config, jitter=jitter), iters=10)
+    del tb
+    out["cli"] = cascade_cli(torch, st)
+    out["aabb16"] = cascade16(torch, st, cfg, hyper)
+    out["launches"] = {"aabb4": out["first"]["launches"] + out["rest"]["launches"],
+                       "aabb4_cli": out["cli"]["launches"], "aabb16": out["aabb16"]["launches"]}
+    print("cascade_phase " + json.dumps({
+        "launches": out["launches"], "prior_sweep_s": out["prior_sweep_s"],
+        "prior_sweep_peak_mem_gib": out["prior_sweep_peak_mem_gib"],
+        **{k: out["first"][k] for k in keys}, "testbed_phase": out["testbed_phase"],
+        "update_bitfield_ms": out["update_bitfield_ms"],
+        "occupancy_update_ms": out["occupancy_update_ms"],
+        "at": {"sweep": out["after_sweep"], CASCADE_STEPS[0]: out["at_first"],
+               CASCADE_STEPS[1]: out["at_last"]}}), flush=True)
+    return out
+
+
+def quality_ab_phase(torch, st, cfg, hyper) -> dict:
+    """tests/test_compaction.py's two quality A/Bs at full base.json width:
+    QUALITY_AB_ARMS, each QUALITY_AB_STEPS Testbed steps on the 16-view
+    SCENE_RES^2 sphere scene from the same seed (kernel 1 once a step), the
+    held-out PSNR (the two views of held_out_views) and the EMA field's mean
+    |sdf| on tests/e2e_drive.py's shell (512 points of the true sphere
+    from ``np.random.default_rng(0)``).  Each pair of QUALITY_AB_PAIRS,
+    arm X against arm Y, is held to the tests' bars, PSNR_X > PSNR_Y -
+    QUALITY_AB_PSNR_MARGIN and |sdf|_X < QUALITY_AB_SDF_FACTOR |sdf|_Y +
+    1e-3; the phase fails if a pair of QUALITY_AB_GATED misses them."""
+    import numpy as np
+
+    from neus2_tpu_torch.api.testbed import Testbed
+    from neus2_tpu_torch.data.synthetic import SPHERE_CENTER, SPHERE_RADIUS, make_sphere_dataset
+    from neus2_tpu_torch.models.field import sdf_fn
+
+    d = np.random.default_rng(0).normal(size=(512, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    shell = torch.tensor(SPHERE_CENTER + SPHERE_RADIUS * d, dtype=torch.float32, device="cuda")
+    print("quality_ab_phase departures from base.json: the arms' hit_oversample, mask loss "
+          "weight and eikonal weight", flush=True)
+    arms = {}
+    for name, (oversample, mask, ek) in QUALITY_AB_ARMS.items():
+        ek = hyper.ek_loss_weight if ek is None else ek
+        losses = dict(mask_loss_weight=mask, ek_loss_weight=ek)
+        tb = Testbed(config=dataclasses.replace(cfg, hit_oversample=oversample, **losses),
+                     hyper=dataclasses.replace(
+                         hyper, first_frame_max_training_step=QUALITY_AB_STEPS, **losses),
+                     seed=0, device="cuda")
+        tb.load_training_data_from_datasets([make_sphere_dataset(n_views=16,
+                                                                 resolution=SCENE_RES, seed=0)])
+        r = run_testbed(torch, st, tb)
+        tb.prepare_for_test()
+        views = held_out_views(torch, tb, f"quality_ab {name}")
+        with torch.no_grad():
+            sdf, _ = sdf_fn(tb.state.ema_params, shell, tb.config.field)
+        arms[name] = {"hit_oversample": oversample, "mask_loss_weight": mask,
+                      "ek_loss_weight": ek,
+                      **{k: r[k] for k in ("steps", "launches", "loss_first", "loss_last",
+                                           "ms_per_step")},
+                      "psnr": float(np.mean([v["psnr"] for v in views])),
+                      "ssim": float(np.mean([v["ssim"] for v in views])),
+                      "shell_abs_sdf": float(sdf.abs().mean())}
+        del tb
+    pairs = {}
+    for what, (x, y) in QUALITY_AB_PAIRS.items():
+        a, b = arms[x], arms[y]
+        pairs[what] = {
+            "psnr_diff": a["psnr"] - b["psnr"],
+            "sdf_ratio": a["shell_abs_sdf"] / b["shell_abs_sdf"],
+            "meets_bars": bool(a["psnr"] > b["psnr"] - QUALITY_AB_PSNR_MARGIN
+                               and a["shell_abs_sdf"]
+                               < QUALITY_AB_SDF_FACTOR * b["shell_abs_sdf"] + 1e-3),
+            "gated": what in QUALITY_AB_GATED}
+    out = {"arms": arms, "pairs": pairs,
+           "launches": {n: a["launches"] for n, a in arms.items()}}
+    print("quality_ab_phase " + json.dumps(out), flush=True)
+    missed = [w for w, p in pairs.items() if p["gated"] and not p["meets_bars"]]
+    if missed:
+        raise AssertionError(f"quality_ab_phase: {missed} miss the bars {pairs}")
+    return out
+
+
+def cublas_version() -> str:
+    """The version of the cuBLAS this process loaded (``cublasGetProperty``)
+    and its path; "not loaded" before the first product on the card."""
+    import ctypes
+
+    libs = sorted({line.split()[-1] for line in Path("/proc/self/maps").read_text().splitlines()
+                   if "/libcublas.so" in line})
+    if not libs:
+        return "not loaded"
+    lib = ctypes.CDLL(libs[0])
+    lib.cublasGetProperty.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.cublasGetProperty.restype = ctypes.c_int
+    parts = []
+    for prop in range(3):  # MAJOR_VERSION, MINOR_VERSION, PATCH_LEVEL
+        v = ctypes.c_int(-1)
+        lib.cublasGetProperty(prop, ctypes.byref(v))
+        parts.append(str(v.value))
+    return ".".join(parts) + " " + libs[0]
+
+
+def provenance(torch, field: dict) -> dict:
+    """What the machine is, for telling machines apart by the last bits of
+    a run: library versions, the NVIDIA driver, the card's SM count and L2, the
+    visible cards, the cuBLAS workspace setting, the host's CPU and the
+    SIMD paths of torch and numpy on it, and SHA-256s of three computations
+    (the field check's card outputs, the SDF mode's step-check loss and
+    gradients on the card, and a host-side one: the SDF phase's CSG mesh
+    and the training pool that phase draws from it)."""
+    import numpy as np
+
+    from neus2_tpu_torch.engine import sdf_mode
+    from neus2_tpu_torch.utils.tree import tree_leaves
+
+    props = torch.cuda.get_device_properties(0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=driver_version", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.split()
+    cpu = [line.split(":", 1)[1].strip() for line in
+           Path("/proc/cpuinfo").read_text().splitlines() if line.startswith("model name")]
+    loss, grads = sdf_step(torch, "cuda")
+    with tempfile.TemporaryDirectory() as d:
+        write_csg_mesh(Path(d) / "csg.obj", SDF_MESH_RES)
+        verts, faces = sdf_mode.load_mesh_obj(Path(d) / "csg.obj")
+    verts, _, _ = sdf_mode.normalize_mesh(verts)
+    fit = sdf_mode.SdfFitConfig()
+    pool, dist = sdf_mode.generate_training_pool(
+        sdf_mode.TriangleBVH(verts, faces), verts, faces, fit.pool_size, seed=0,
+        surface_offset_scale=fit.surface_offset_scale)
+    h = hashlib.sha256()
+    for a in (verts, faces, pool, dist):
+        h.update(np.ascontiguousarray(a).tobytes())
+    try:
+        from numpy._core._multiarray_umath import __cpu_features__ as np_features
+    except ImportError:
+        from numpy.core._multiarray_umath import __cpu_features__ as np_features
+    out = {
+        "torch": torch.__version__, "cuda": torch.version.cuda, "cublas": cublas_version(),
+        "cudnn": torch.backends.cudnn.version(), "nvidia_driver": smi[0] if smi else None,
+        "sm_count": props.multi_processor_count, "l2_bytes": props.L2_cache_size,
+        "visible_cards": torch.cuda.device_count(),
+        "CUBLAS_WORKSPACE_CONFIG": os.environ.get("CUBLAS_WORKSPACE_CONFIG"),
+        "cpu": cpu[0] if cpu else None, "cpu_threads": os.cpu_count(),
+        "torch_threads": torch.get_num_threads(),
+        "torch_cpu_capability": torch.backends.cpu.get_cpu_capability(),
+        "numpy": np.__version__,
+        "numpy_avx512f": bool(np_features.get("AVX512F")),
+        "field_card_sha256": field["card_sha256"],
+        "sdf_step_card_sha256": sha256_of([loss, *tree_leaves(grads)]),
+        "host_mesh_pool_sha256": h.hexdigest(),
+    }
+    print("provenance " + json.dumps(out), flush=True)
+    return out
+
+
 def field_agrees_with_cpu(torch, cfg, n: int = 16384, limits: dict | None = None) -> dict:
     """The field and its gradients at full width on the card (through the
     segment-sum kernel) vs the same inputs on the CPU (exact scatter):
     outputs within 1e-4 of their max, MLP and variance gradients within
     1e-3 of their max, table gradients within 1e-2 of their max (the
     kernel sums bf16-quantized updates, as the reference's fp16 atomics
-    do); ``limits`` replaces those three bounds."""
+    do); ``limits`` replaces those three bounds.  Returns the worst of each
+    and a SHA-256 of the card's outputs and gradients."""
     from neus2_tpu_torch.models.field import field_forward, init_field
     from neus2_tpu_torch.utils.tree import tree_leaves, tree_map
 
@@ -2007,9 +2532,10 @@ def field_agrees_with_cpu(torch, cfg, n: int = 16384, limits: dict | None = None
     limits = limits or {"outputs": 1e-4, "tables": 1e-2, "mlp": 1e-3}
     if any(worst[k] > limits[k] for k in worst):
         raise AssertionError(f"field on the card disagrees with the CPU: {worst}")
-    print("field_vs_cpu " + json.dumps({"compute_dtype": str(cfg.field.compute_dtype), **worst}),
+    out = {**worst, "card_sha256": sha256_of(on_card)}
+    print("field_vs_cpu " + json.dumps({"compute_dtype": str(cfg.field.compute_dtype), **out}),
           flush=True)
-    return worst
+    return out
 
 
 def training_phase(torch, tt, st, cfg, images, cams):
@@ -2388,7 +2914,8 @@ def parallel_phase(torch) -> dict:
     return out
 
 
-def main() -> int:
+def main(argv: list[str] | None = None) -> int:
+    provenance_only = "--provenance" in (sys.argv[1:] if argv is None else argv)
     try:
         import torch
     except ImportError:
@@ -2419,6 +2946,9 @@ def main() -> int:
     print(f"build_s {time.perf_counter() - t0:.1f}", flush=True)
 
     cfg, hyper = config_from_json(REPO / "configs" / "base.json")
+    provenance(torch, field_agrees_with_cpu(torch, cfg))
+    if provenance_only:
+        return 0
     # F=4 at tpu_opt.json's levels, the shapes its Testbed gives the kernels.
     tpu_opt_cfg = config_from_json(REPO / "configs" / "tpu_opt.json")[0]
     l4f8_cfg = config_from_json(REPO / "configs" / "l4f8.json")[0]
@@ -2429,7 +2959,6 @@ def main() -> int:
     sorted_f8 = kernel_phase_sorted(torch, st, cfg, 8)
     sorted_f4 = kernel_phase_sorted(torch, st, tpu_opt_cfg, 4)
     ops = op_path_phase(torch, st, sc, cfg)
-    field_agrees_with_cpu(torch, cfg)
     images, cams = make_sphere_dataset(n_views=16, resolution=SCENE_RES, seed=0).to_device("cuda")
     train, state = training_phase(torch, tt, st, cfg, images, cams)
     prof = profile_phase(torch, tt, state, images, cams, cfg)
@@ -2443,6 +2972,8 @@ def main() -> int:
     camera = camera_phase(torch, st, cfg, hyper, prof["device_ms_per_step"])
     lens = lens_phase(torch, st, cfg, hyper, prof, tb)
     bf16 = bf16_phase(torch, st, cfg, hyper, tb, prof)
+    cascade = cascade_phase(torch, st, cfg, hyper, tb)
+    quality = quality_ab_phase(torch, st, cfg, hyper)
     sdf = sdf_phase(torch, st)
     image = image_phase(torch, st)
     parallel = parallel_phase(torch)
@@ -2470,6 +3001,7 @@ def main() -> int:
          "dynamic_launches": dyn["launches_by_phase"],
          "camera_launches": camera["launches"],
          "lens_launches": lens["launches_all"], "bf16_launches": bf16["launches"],
+         "cascade_launches": cascade["launches"], "quality_ab_launches": quality["launches"],
          "parallel_launches": [r["distinct_draws"]["launches"] for r in parallel["ranks"]],
          "sdf_launches": sdf["launches"], "sdf_shape": {
              k: sdf["kernel"][k] for k in ("updates_per_level", "max_abs_err", "kernel_ms",

@@ -100,9 +100,30 @@ def init_field(generator: torch.Generator, config: FieldConfig, device="cpu") ->
     return tree_map(lambda t: t.to(device), params)
 
 
+# The CPU threads of the sphere-init fit (``_calibrate_sphere_init``): 8
+# keeps the init that 8-thread hosts drew before, the one-card H100 runs
+# PERF.md records among them.
+_CALIBRATION_THREADS = 8
+
+
 def _calibrate_sphere_init(sdf_mlp: Params, config: FieldConfig) -> Params:
     """Ridge-fit the last layer's sdf column so raw_sdf(x) ~ |x-0.5| - r -
-    bias on the actual hidden activations (grid features zeroed)."""
+    bias on the actual hidden activations (grid features zeroed).
+
+    The ridge system is ill-conditioned, and the CPU's BLAS splits the
+    Gram product's sum over 8192 rows by thread count: one thread count
+    against another moves the fitted weights by up to ~1e-2.  The fit runs
+    on _CALIBRATION_THREADS threads whatever the host's count, so every
+    host draws the same init."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(_CALIBRATION_THREADS)
+    try:
+        return _ridge_fit_sphere(sdf_mlp, config)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _ridge_fit_sphere(sdf_mlp: Params, config: FieldConfig) -> Params:
     gen = torch.Generator().manual_seed(7)
     x = torch.rand((8192, 3), generator=gen)
     h = torch.cat([x, torch.zeros((x.shape[0], config.grid.output_dim))], -1)

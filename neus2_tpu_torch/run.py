@@ -21,7 +21,7 @@ format, so either package's CLI resumes from the other's.  A dynamic scene
 writes ``checkpoints/frame_{k}.msgpack`` (incremental: no optimizer state)
 and ``checkpoints/transform_{k}.txt`` (the accumulated rigid transform)
 when frame k finishes, and the transform for the last frame.  Runs on the
-card unless ``--device cpu`` is given.  ``--fp16_images`` stores the
+card unless ``--device cpu`` is given.  ``--fp16-images`` stores the
 training texels in fp16, ``--bf16`` runs the MLPs and the encoder's
 backward on bf16 operands with fp32 sums, and ``--save_density_png``
 writes the SDF grid's slice mosaic.  The mesh outputs: with
@@ -82,7 +82,7 @@ def parse_args(argv=None):
     p.add_argument("--bf16", action="store_true",
                    help="bf16 operands for the MLPs and the encoder's backward "
                         "(fp32 sums and master params)")
-    p.add_argument("--fp16_images", action="store_true",
+    p.add_argument("--fp16-images", action="store_true",
                    help="store the training images in fp16 (half the device memory)")
     p.add_argument("--depth_supervision_lambda", type=float, default=None,
                    help="L2 depth-supervision weight; depth maps load from per-frame "

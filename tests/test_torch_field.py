@@ -118,3 +118,24 @@ def test_mlp_layout_is_in_by_out():
     for a, b in zip(jax.tree_util.tree_leaves(back), jax.tree_util.tree_leaves(pj)):
         np.testing.assert_array_equal(a, b)
     assert dataclasses.asdict(tc.grid) == dataclasses.asdict(jc.grid)
+
+
+def test_init_is_the_same_whatever_the_thread_count():
+    """The sphere-init fit's Gram product sums 8192 rows in an order the
+    CPU's BLAS picks by thread count, and its ill-conditioned ridge solve
+    turned that into calibrated weights up to ~1e-2 apart: hosts of other
+    core counts drew other inits (seen: 8 and 32 threads).  It runs on a
+    fixed count now, so the draw is bitwise the same under any count."""
+    tc = tf.FieldConfig(grid=TGrid(n_levels=4, log2_hashmap_size=12),
+                        sdf_hidden_dim=32, rgb_hidden_dim=16)
+    threads = torch.get_num_threads()
+    draws = []
+    try:
+        for n in (1, 3, 16):
+            torch.set_num_threads(n)
+            draws.append(tree_leaves(tf.init_field(torch.Generator().manual_seed(0), tc)))
+            assert torch.get_num_threads() == n
+    finally:
+        torch.set_num_threads(threads)
+    for other in draws[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(draws[0], other))

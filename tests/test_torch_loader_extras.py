@@ -545,7 +545,7 @@ def test_evaluate_keeps_the_held_out_lens(tmp_path):
 
 
 def test_cli_precision_flags_and_density_png(tmp_path):
-    """``--fp16_images --bf16 --save_density_png`` on a distorted scene:
+    """``--fp16-images --bf16 --save_density_png`` on a distorted scene:
     fp16 texels equal to JAX's fp16 copy, the bf16 config, finite losses,
     and the density mosaic with the pixels and stats JAX's
     save_density_grid_png gives for the same params
@@ -558,7 +558,7 @@ def test_cli_precision_flags_and_density_png(tmp_path):
     (tmp_path / "net.json").write_text(json.dumps(net))
     tb = run.main(["--scene", str(path), "--network", str(tmp_path / "net.json"),
                    "--output_dir", str(tmp_path / "out"), "--n_steps", "3", "--n_rays", "64",
-                   "--samples_per_ray", "8", "--fp16_images", "--bf16", "--save_density_png",
+                   "--samples_per_ray", "8", "--fp16-images", "--bf16", "--save_density_png",
                    "--mesh_resolution", "32", "--device", "cpu"])
     assert tb.images.dtype == torch.float16 and tb.cameras.distortion is not None
     assert tb.config.field.compute_dtype == torch.bfloat16 and np.isfinite(tb.loss_scalar)

@@ -116,3 +116,84 @@ def test_probe_and_draw(aabb_scale, n_cascades):
     )
     for a, b in zip(jm, tmr):
         np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-5, atol=1e-6)
+
+
+def _sweep_configs(n_cascades, n_probe):
+    """Both packages' configs of a small field over a scene of
+    2^(n_cascades - 1) (aabb_scale 4: 3 cascades; 16: 5)."""
+    from neus2_tpu.engine.train import TrainConfig as JTrainConfig
+    from neus2_tpu.models.field import FieldConfig as JFieldConfig
+    from neus2_tpu.ops.hashgrid import HashGridConfig as JGrid
+    from neus2_tpu_torch.engine.train import TrainConfig
+    from neus2_tpu_torch.models.field import FieldConfig
+    from neus2_tpu_torch.ops.hashgrid import HashGridConfig
+
+    grid = dict(n_levels=4, log2_hashmap_size=12, base_resolution=16, per_level_scale=1.45)
+    kw = dict(aabb_scale=2 ** (n_cascades - 1), occ_cascades=n_cascades, occ_n_probe=n_probe)
+    field = dict(sdf_hidden_dim=16, rgb_hidden_dim=16, init_radius=0.2)
+    return (JTrainConfig(field=JFieldConfig(grid=JGrid(**grid), **field), **kw),
+            TrainConfig(field=FieldConfig(grid=HashGridConfig(**grid), **field), **kw))
+
+
+@pytest.mark.parametrize("n_cascades,n_probe,updates", [
+    (3, 1 << 17, 48), (5, 1 << 17, 80), (3, 1 << 14, 16), (5, 1 << 14, 16)])
+def test_prior_sweep_length(monkeypatch, n_cascades, n_probe, updates):
+    """The prior sweep probes every cell of 3 or 5 cascades in
+    ceil(cells / probes) updates (base.json's 2^17 probes: 48 and 80), and
+    takes 16 when a full sweep does not fit in 256, in both packages."""
+    from neus2_tpu.engine import train as jt
+    from neus2_tpu_torch.engine import train as tt
+
+    jcfg, tcfg = _sweep_configs(n_cascades, n_probe)
+    for mod, cfg in ((jt, jcfg), (tt, tcfg)):
+        calls = []
+        monkeypatch.setattr(mod, "occupancy_update", lambda s, c: calls.append(c) or s)
+        assert mod.occupancy_prior_sweep("state", cfg) == "state"
+        assert len(calls) == updates and all(c is cfg for c in calls)
+
+
+@pytest.mark.parametrize("n_cascades", [3, 5])
+def test_prior_sweep_and_update_match_jax(monkeypatch, n_cascades):
+    """``occupancy_prior_sweep`` (16 updates of 2^14 probes: a full sweep
+    of 3-5 x 128^3 cells is too many for a CPU test) and one
+    ``occupancy_update`` more, from the same field, with the jitter the JAX
+    package draws from its key injected: every update's probes over 3 or 5
+    cascades, the logistic density, the EMA-max merge and the cascade
+    max-pool.  Bits exactly; densities rtol 1e-4 (the SDF's rounding) plus
+    atol 4 s 2^-24: the logistic density s sig (1 - sig) loses digits to
+    the difference 1 - sig, so each ulp (2^-24 near 1) by which the
+    packages' sigmoids differ moves it by up to s 2^-24 whatever its size
+    (seen: two ulps, 2.4e-6 at s ~ 20, 3e-3 of a density of 8e-4 on a probe
+    far from the surface)."""
+    from neus2_tpu.engine import train as jt
+    from neus2_tpu_torch import interop
+    from neus2_tpu_torch.engine import train as tt
+
+    jcfg, tcfg = _sweep_configs(n_cascades, 1 << 14)
+    jstate = jt.init_train_state(jax.random.PRNGKey(0), jcfg, 1)
+    start = jax.device_get(jstate)
+    jstate = jt.occupancy_update(jt.occupancy_prior_sweep(jstate, jcfg), jcfg)
+
+    key, jitters = start.key, []
+    for _ in range(17):
+        key, k_probe = jax.random.split(key)
+        jitters.append(torch.from_numpy(np.array(jax.random.uniform(k_probe, (1 << 14, 3)))))
+    occ = start.occupancy
+    tstate = interop.state_from_jax(start.params, start.ema_params, start.opt_state,
+                                    (occ.density, occ.bitfield, occ.ema_step), start.step,
+                                    start.frame_step)
+    update = tt.occupancy_update
+    monkeypatch.setattr(tt, "occupancy_update",
+                        lambda s, c: update(s, c, jitter=jitters.pop(0)))
+    tstate = tt.occupancy_update(tt.occupancy_prior_sweep(tstate, tcfg), tcfg)
+    assert not jitters
+
+    got, ref = tstate.occupancy, jax.device_get(jstate.occupancy)
+    assert got.n_cascades == n_cascades and got.ema_step == int(ref.ema_step) == 17
+    np.testing.assert_array_equal(got.bitfield.numpy(), np.asarray(ref.bitfield))
+    inv_s = float(np.exp(10.0 * np.asarray(start.params["variance"])).max())
+    np.testing.assert_allclose(got.density.numpy(), np.asarray(ref.density), rtol=1e-4,
+                               atol=4 * inv_s * 2.0**-24)
+    # Every cascade was probed, and the outer ones hold occupied cells.
+    assert all(bool((got.density[k] != 0).any()) for k in range(n_cascades))
+    assert bool(got.bitfield[-1].any())

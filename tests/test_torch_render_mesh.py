@@ -251,3 +251,69 @@ def test_image_metrics():
     tex[..., :3] *= tex[..., 3:]
     _close(timage.srgb_eval_target(torch.from_numpy(tex)),
            jimage.srgb_eval_target(jnp.asarray(tex)), 1e-5)
+
+
+@pytest.fixture(scope="module")
+def scene4(scene):
+    """The field of ``scene`` over an aabb_scale-4 box: 3 cascades, a ball
+    of radius 0.25 around the centre and one of 0.3 around (1.25, 0.5, 0.5),
+    outside the unit cube, marked through the cascade that holds each
+    cell; cameras of tests/test_cascades.py's scene (distance 2.6)."""
+    from neus2_tpu.data.synthetic import make_multi_sphere_dataset
+
+    c = (np.arange(G) + 0.5) / G
+    cell = np.stack(np.meshgrid(c, c, c, indexing="ij"), -1)[..., ::-1]  # (z, y, x) -> xyz
+    dens = np.zeros((3, G, G, G), np.float32)
+    for k in range(3):
+        pos = (cell - 0.5) * 2.0**k + 0.5
+        near = ((np.linalg.norm(pos - 0.5, axis=-1) < 0.3)
+                | (np.linalg.norm(pos - [1.25, 0.5, 0.5], axis=-1) < 0.35))
+        dens[k] = np.where(near, 0.1, 0.0)
+    ds = make_multi_sphere_dataset([(np.array([0.5, 0.5, 0.5], np.float32), 0.25),
+                                    (np.array([1.25, 0.5, 0.5], np.float32), 0.3)],
+                                   n_views=2, resolution=RES, cam_distance=2.6, aabb_scale=4)
+    return {
+        "jocc": jocc.OccupancyGrid(jnp.asarray(dens), jnp.asarray(dens > 0.05), jnp.int32(5)),
+        "tocc": tocc.OccupancyGrid(torch.from_numpy(dens), torch.from_numpy(dens > 0.05), 5),
+        "jcam": JCameras(jnp.asarray(ds.poses), jnp.asarray(ds.focal),
+                         jnp.asarray(ds.principal), (RES, RES)),
+        "tcam": TCameras(torch.from_numpy(ds.poses), torch.from_numpy(ds.focal),
+                         torch.from_numpy(ds.principal), (RES, RES)),
+    }
+
+
+@pytest.mark.parametrize("cone", [False, True])
+def test_render_at_aabb_scale4(scene, scene4, cone):
+    """``render_image`` (its ``march_probe`` compaction, the multi-cascade
+    lookup, the warp-metric dt) and ``march_probe`` over the aabb_scale-4
+    box, with the render's uniform candidates (the Testbed's and the eval's
+    render configuration, cone angle 0) and with the cone angle's
+    exponential ones; the module's tolerances."""
+    cone_angle = jmarch.cone_angle_for_scene(4) if cone else 0.0
+    jcfg = jrender.RenderConfig(field=scene["jc"], aabb_scale=4, cone_angle=cone_angle,
+                                **_RENDER)
+    tcfg = trender.RenderConfig(field=scene["tc"], aabb_scale=4, cone_angle=cone_angle,
+                                **_RENDER)
+    jc, tc = scene4["jcam"], scene4["tcam"]
+    o, d = (np.array(a) for a in jpixel_to_ray(
+        jc, jnp.zeros((RES * RES,), jnp.int32),
+        jnp.asarray(np.stack(np.meshgrid((np.arange(RES) + 0.5) / RES,
+                                         (np.arange(RES) + 0.5) / RES), -1).reshape(-1, 2),
+                    jnp.float32)))
+    ref = jmarch.march_probe(jnp.asarray(o), jnp.asarray(d), jaabb(4), scene4["jocc"],
+                             jcfg.n_candidates, cone_angle=cone_angle)
+    got = tmarch.march_probe(torch.from_numpy(o), torch.from_numpy(d), taabb(4),
+                             scene4["tocc"], tcfg.n_candidates, cone_angle=cone_angle)
+    _close(got, ref, 1e-5)
+    assert (got > 0).any() and not (got > 0).all()
+    for view in range(2):
+        ref = jrender.render_image(scene["jp"], jdelta.init_accumulated(), scene4["jocc"], jc,
+                                   jc.poses[view], jc.focal[view], jc.principal[view],
+                                   jax.random.PRNGKey(1), jcfg, background=0.0, spp=1)
+        got = trender.render_image(scene["tp"], None, scene4["tocc"], tc, tc.poses[view],
+                                   tc.focal[view], tc.principal[view], None, tcfg,
+                                   background=0.0, spp=1)
+        for g, r in zip(got, ref):
+            assert g.shape == r.shape
+            _close(g, r, 3e-4)
+        assert float(got[2].max()) > 0.1

@@ -14,10 +14,12 @@ packages' grid values differ by < 1e-6, so a value closer to it can take
 either sign and change the topology).
 """
 
+import argparse
 import dataclasses
 import json
 import math
 from pathlib import Path
+from unittest import mock
 
 import jax
 import numpy as np
@@ -41,7 +43,8 @@ from neus2_tpu_torch import interop, run
 from neus2_tpu_torch.api import msgpack_codec
 from neus2_tpu_torch.api.ngp_snapshot import load_reference_snapshot, save_reference_snapshot
 from neus2_tpu_torch.utils import camera_path
-from neus2_tpu_torch.data.synthetic import make_sphere_dataset
+from neus2_tpu_torch.data.export import save_dataset_na as port_save_dataset_na
+from neus2_tpu_torch.data.synthetic import make_multi_sphere_dataset, make_sphere_dataset
 from neus2_tpu_torch.engine.train import TrainConfig
 from neus2_tpu_torch.models.field import FieldConfig
 from neus2_tpu_torch.ops.hashgrid import HashGridConfig
@@ -307,3 +310,88 @@ def test_camera_path_matches_jax(tmp_path):
     for u in np.linspace(0.0, 1.0, 9):
         np.testing.assert_array_equal(ours.eval(float(u)).pose, theirs.eval(float(u)).pose)
 
+
+
+def test_cli_trains_a_scene_larger_than_the_unit_cube(tmp_path):
+    """A scene written with ``"aabb_scale": 4`` (tests/test_cascades.py's
+    two spheres, one outside the unit cube) through the CLI: the Testbed
+    derives 3 cascades and 512 candidates, trains, meshes over the
+    aabb_scale-4 box and evaluates; final.msgpack holds the scale and the
+    3-cascade grid.  (One run: its prior sweep probes 3 x 128^3 cells.)"""
+    spheres = [(np.array([0.5, 0.5, 0.5], np.float32), 0.25),
+               (np.array([1.25, 0.5, 0.5], np.float32), 0.3)]
+    kw = dict(resolution=24, cam_distance=2.6, aabb_scale=4)
+    train = port_save_dataset_na(make_multi_sphere_dataset(spheres, n_views=6, seed=0, **kw),
+                                 tmp_path / "train")
+    test = port_save_dataset_na(make_multi_sphere_dataset(spheres, n_views=2, seed=1, **kw),
+                                tmp_path / "test")
+    assert json.loads(train.read_text())["aabb_scale"] == 4
+    (tmp_path / "net.json").write_text(json.dumps(NETWORK))
+    common = ["--scene", str(train), "--network", str(tmp_path / "net.json"), "--output_dir",
+              str(tmp_path / "out"), "--n_rays", "256", "--samples_per_ray", "16",
+              "--test_transforms", str(test), "--eval_spp", "1", "--device", "cpu"]
+    tb = run.main([*common, "--name", "a4", "--n_steps", "6", "--save_mesh",
+                   "--mesh_resolution", "32"])
+    assert tb.training_step == 6 and tb.config.aabb_scale == 4
+    assert (tb.config.occ_cascades, tb.config.n_candidates) == (3, 512)
+    assert tb.config.cone_angle == 1.0 / 256 and tb.state.occupancy.n_cascades == 3
+    out = tmp_path / "out" / "a4"
+    assert (out / "mesh" / "mesh.obj").read_text().count("\nf ") > 100
+    trained = json.loads((out / "metrics.json").read_text())
+    assert all(np.isfinite(trained["psnr"]))
+
+    payload = msgpack_codec.unpackb((out / "checkpoints" / "final.msgpack").read_bytes())
+    assert int(payload["meta"]["aabb_scale"]) == 4
+    np.testing.assert_array_equal(payload["leaves"][".occupancy.bitfield"],
+                                  tb.state.occupancy.bitfield.numpy())
+    assert payload["leaves"][".occupancy.density"].shape == (3, 128, 128, 128)
+
+
+def _parser(parse_args) -> argparse.ArgumentParser:
+    """The ArgumentParser a CLI's ``parse_args`` builds."""
+    seen = []
+    parse = argparse.ArgumentParser.parse_args
+
+    def grab(self, args=None, namespace=None):
+        seen.append(self)
+        return parse(self, args, namespace)
+
+    with mock.patch.object(argparse.ArgumentParser, "parse_args", grab):
+        parse_args(["--scene", "s.json"])
+    return seen[0]
+
+
+def test_cli_takes_the_jax_command_line():
+    """One JAX-spelled command line carrying every option both CLIs
+    define, each set away from its default, parses to the same namespace
+    in both, key by key.  The port has one option more, ``--device``; the
+    JAX CLI one, ``--tensorboard`` (not ported: the card's machine has no
+    tensorboard package)."""
+    jax_p, port_p = _parser(jrun.parse_args), _parser(run.parse_args)
+
+    def options(p):
+        return {s: a for a in p._actions for s in a.option_strings if s not in ("-h", "--help")}
+
+    jax_o, port_o = options(jax_p), options(port_p)
+    assert set(port_o) - set(jax_o) == {"--device"}
+    assert set(jax_o) - set(port_o) == {"--tensorboard"}
+    argv = []
+    for flag, action in jax_o.items():
+        if flag == "--tensorboard":
+            continue
+        if action.nargs == 0:  # store_true
+            argv.append(flag)
+        elif action.choices:
+            argv += [flag, next(c for c in action.choices if c != action.default)]
+        elif action.nargs == "*":
+            argv += [flag, "1", "2"]
+        elif action.type in (int, float):
+            argv += [flag, "3"]
+        else:
+            argv += [flag, f"value-of-{flag[2:]}"]
+    ours, theirs = vars(run.parse_args(argv)), vars(jrun.parse_args(argv))
+    assert ours.pop("device") == "cuda" and not theirs.pop("tensorboard")
+    assert ours.keys() == theirs.keys()
+    for k in theirs:
+        assert ours[k] == theirs[k], k
+    assert ours["fp16_images"] is True

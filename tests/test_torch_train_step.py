@@ -16,6 +16,7 @@ step counters and occupancy bits exactly.  ``clip`` reproduces
 """
 
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -24,13 +25,15 @@ import pytest
 import torch
 
 from neus2_tpu.api.testbed import config_from_json as jax_config_from_json
+from neus2_tpu.data.synthetic import make_multi_sphere_dataset as jax_multi_sphere
 from neus2_tpu.data.synthetic import make_sphere_dataset as jax_sphere
 from neus2_tpu.engine import train as jt
 from neus2_tpu.engine.rays import Cameras as JCameras
 from neus2_tpu_torch import interop
 from neus2_tpu_torch.api.testbed import config_from_json
-from neus2_tpu_torch.data.synthetic import make_sphere_dataset
+from neus2_tpu_torch.data.synthetic import make_multi_sphere_dataset, make_sphere_dataset
 from neus2_tpu_torch.engine import train as tt
+from neus2_tpu_torch.engine.rays import Cameras
 from neus2_tpu_torch.utils.tree import tree_leaves
 
 torch.set_num_threads(2)
@@ -118,10 +121,10 @@ def _close_tree(a_tree, b_leaves, rel):
         assert np.abs(b.detach().numpy() - a).max() <= rel * max(np.abs(a).max(), 1e-12)
 
 
-def _start(name):
-    jcfg = _shrink(jax_config_from_json(f"configs/{name}")[0])
-    tcfg = _shrink(config_from_json(f"configs/{name}")[0])
-    scene = jax_sphere(n_views=N_VIEWS, resolution=RES, seed=0)
+def _start(name, derive=lambda cfg: cfg, scene=None):
+    jcfg = derive(_shrink(jax_config_from_json(f"configs/{name}")[0]))
+    tcfg = derive(_shrink(config_from_json(f"configs/{name}")[0]))
+    scene = scene or jax_sphere(n_views=N_VIEWS, resolution=RES, seed=0)
     images = jnp.asarray(scene.images)
     cams = JCameras(jnp.asarray(scene.poses), jnp.asarray(scene.focal),
                     jnp.asarray(scene.principal), (RES, RES))
@@ -144,6 +147,35 @@ def wide_start(request):
     """The repo's wider-row configurations, shrunk as ``_shrink`` does
     with their features per level kept (4 and 8)."""
     return _start(request.param)
+
+
+# tests/test_cascades.py's scene: a sphere in the unit cube and one outside it.
+SPHERES = [(np.array([0.5, 0.5, 0.5], np.float32), 0.25),
+           (np.array([1.25, 0.5, 0.5], np.float32), 0.3)]
+
+
+def _derive_for(aabb_scale):
+    """What the Testbed derives for a scene of ``aabb_scale``
+    (``_derive_config``: 1 + ceil(log2 S) cascades, the candidates times as
+    many, capped at 512), with tests/test_cascades.py's init radius 0.2.
+    The probe budget stays below a full sweep in 256 updates, so the prior
+    sweep takes its 16-update branch (a full one probes 3-5 x 128^3 cells,
+    too many for a CPU test)."""
+    n_cascades = 1 + math.ceil(math.log2(aabb_scale))
+
+    def derive(cfg):
+        return dataclasses.replace(
+            cfg, field=dataclasses.replace(cfg.field, init_radius=0.2), aabb_scale=aabb_scale,
+            occ_cascades=n_cascades, n_candidates=min(512, cfg.n_candidates * n_cascades),
+            occ_n_probe=1 << 14)
+    return derive
+
+
+@pytest.fixture(scope="module", params=[4, 16])
+def aabb_start(request):
+    scene = jax_multi_sphere(SPHERES, n_views=N_VIEWS, resolution=RES, cam_distance=2.6,
+                             aabb_scale=request.param)
+    return _start("base.json", _derive_for(request.param), scene)
 
 
 def _to_torch(state):
@@ -172,9 +204,36 @@ def test_train_step_matches_jax_at_wider_rows(wide_start):
     _step_matches_jax(*wide_start, tables_rule=True)
 
 
-def _step_matches_jax(jcfg, tcfg, scene, images, cams, state, tables_rule=False):
+def test_train_step_matches_jax_at_aabb_scale(aabb_start):
+    """A scene larger than the unit cube (aabb_scale 4: 3 cascades, 96
+    candidates; 16: 5 cascades, 160), both spheres of
+    tests/test_cascades.py: the multi-cascade probe and lookup, the
+    exponential candidate spacing of the cone angle and the warp-metric dt
+    in the step, and the occupancy update after it.  The loss, aux and
+    gradients under base.json's tolerances; the new params, EMA and
+    moments under the tables rule of
+    ``test_train_step_matches_jax_at_wider_rows``; the occupancy density
+    after it rtol 5e-4, atol 1e-6, as tests/test_torch_testbed_dynamic.py
+    holds it: the logistic density s sig (1 - sig) loses digits to the
+    difference 1 - sig, so one ulp of the packages' sigmoids moves it by
+    2^-24 / (1 - sig), ~2e-4 relative at s sdf ~ 8, where a probe of the
+    outer cascades lands (seen: 2.9e-4); the bits exactly."""
+    jcfg, tcfg, scene = aabb_start[:3]
+    assert tcfg.cone_angle == 1.0 / 256 and tcfg.occ_cascades in (3, 5)
+    ds = make_multi_sphere_dataset(SPHERES, n_views=N_VIEWS, resolution=RES, cam_distance=2.6,
+                                   aabb_scale=tcfg.aabb_scale)
+    assert ds.aabb_scale == scene.aabb_scale == tcfg.aabb_scale
+    for k in ("images", "poses", "focal", "principal"):
+        np.testing.assert_array_equal(getattr(ds, k), getattr(scene, k))
+    _step_matches_jax(*aabb_start, tables_rule=True, density_rtol=5e-4)
+
+
+def _step_matches_jax(jcfg, tcfg, scene, images, cams, state, tables_rule=False,
+                      density_rtol=1e-4):
     tstate = _to_torch(state)
-    t_images, t_cams = make_sphere_dataset(N_VIEWS, RES, seed=0).to_device("cpu")
+    t_images = torch.from_numpy(np.asarray(scene.images))
+    t_cams = Cameras(*(torch.from_numpy(np.asarray(a))
+                       for a in (scene.poses, scene.focal, scene.principal)), (RES, RES))
     draws, k_step, _ = _step_draws(state.key, tcfg, N_VIEWS)
 
     jstate = jax.tree_util.tree_map(jnp.asarray, state)
@@ -224,7 +283,7 @@ def _step_matches_jax(jcfg, tcfg, scene, images, cams, state, tables_rule=False)
     jocc = jax.device_get(jt.occupancy_update(jax.tree_util.tree_map(jnp.asarray, jnew), jcfg))
     tocc = tt.occupancy_update(tnew, tcfg, jitter=jitter)
     np.testing.assert_allclose(tocc.occupancy.density.numpy(),
-                               np.asarray(jocc.occupancy.density), rtol=1e-4, atol=1e-6)
+                               np.asarray(jocc.occupancy.density), rtol=density_rtol, atol=1e-6)
     np.testing.assert_array_equal(tocc.occupancy.bitfield.numpy(),
                                   np.asarray(jocc.occupancy.bitfield))
     assert tocc.occupancy.ema_step == int(jocc.occupancy.ema_step)
