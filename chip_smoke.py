@@ -88,8 +88,8 @@ runs them, with the launch counts set to 0 just before and read just after:
   * ``quality_ab_phase``: tests/test_compaction.py's A/Bs at the same width,
     300 Testbed steps an arm, on held-out PSNR and the sphere's |sdf|:
     ``hit_oversample`` 2 against 1, held to the tests' bars, and the mask
-    loss 0.1 against 0, at base.json's eikonal weight and at the tests'
-    0.1, printed against the same bars (it misses them at this width).
+    loss 0.1 against 0, printed against the same bars (it misses them at
+    this width).
 
 Before the kernel phases, one ``provenance`` line names the machine
 (library versions, NVIDIA driver, SM count, visible cards, host CPU) beside
@@ -190,15 +190,13 @@ CASCADE_STEP_LIMITS = (1e-4, 1e-2, 1e-3)
 CASCADE_CLI_STEPS = 100
 CASCADE16_STEPS = 50
 # quality_ab_phase: tests/test_compaction.py's arms (hit_oversample, mask
-# loss weight, eikonal weight: None keeps base.json's) and bars, at its 300
-# steps.  A against B (compaction) is gated; B against C (the mask loss),
-# and B1 against C1 at tests/e2e_drive.py's eikonal weight 0.1, are printed
-# against the same bars and not gated: at this width the mask loss misses
-# them at either weight (PERF.md; ROADMAP.md Queue 3).
-QUALITY_AB_ARMS = {"A": (2, 0.1, None), "B": (1, 0.1, None), "C": (1, 0.0, None),
-                   "B1": (1, 0.1, 0.1), "C1": (1, 0.0, 0.1)}
-QUALITY_AB_PAIRS = {"compaction": ("A", "B"), "mask_loss": ("B", "C"),
-                    "mask_loss_ek_0.1": ("B1", "C1")}
+# loss weight) and bars, at its 300 steps.  A against B (compaction) is
+# gated; B against C (the mask loss) is printed against the same bars and
+# not gated: at this width the mask loss misses them, at base.json's
+# eikonal weight and at tests/e2e_drive.py's 0.1 alike (PERF.md; ROADMAP.md
+# Queue 3).
+QUALITY_AB_ARMS = {"A": (2, 0.1), "B": (1, 0.1), "C": (1, 0.0)}
+QUALITY_AB_PAIRS = {"compaction": ("A", "B"), "mask_loss": ("B", "C")}
 QUALITY_AB_GATED = ("compaction",)
 QUALITY_AB_STEPS = 300
 QUALITY_AB_PSNR_MARGIN = 1.5
@@ -2372,15 +2370,14 @@ def quality_ab_phase(torch, st, cfg, hyper) -> dict:
     d = np.random.default_rng(0).normal(size=(512, 3))
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     shell = torch.tensor(SPHERE_CENTER + SPHERE_RADIUS * d, dtype=torch.float32, device="cuda")
-    print("quality_ab_phase departures from base.json: the arms' hit_oversample, mask loss "
-          "weight and eikonal weight", flush=True)
+    print("quality_ab_phase departures from base.json: the arms' hit_oversample and mask "
+          "loss weight", flush=True)
     arms = {}
-    for name, (oversample, mask, ek) in QUALITY_AB_ARMS.items():
-        ek = hyper.ek_loss_weight if ek is None else ek
-        losses = dict(mask_loss_weight=mask, ek_loss_weight=ek)
-        tb = Testbed(config=dataclasses.replace(cfg, hit_oversample=oversample, **losses),
-                     hyper=dataclasses.replace(
-                         hyper, first_frame_max_training_step=QUALITY_AB_STEPS, **losses),
+    for name, (oversample, mask) in QUALITY_AB_ARMS.items():
+        tb = Testbed(config=dataclasses.replace(cfg, hit_oversample=oversample,
+                                                mask_loss_weight=mask),
+                     hyper=dataclasses.replace(hyper, mask_loss_weight=mask,
+                                               first_frame_max_training_step=QUALITY_AB_STEPS),
                      seed=0, device="cuda")
         tb.load_training_data_from_datasets([make_sphere_dataset(n_views=16,
                                                                  resolution=SCENE_RES, seed=0)])
@@ -2390,7 +2387,6 @@ def quality_ab_phase(torch, st, cfg, hyper) -> dict:
         with torch.no_grad():
             sdf, _ = sdf_fn(tb.state.ema_params, shell, tb.config.field)
         arms[name] = {"hit_oversample": oversample, "mask_loss_weight": mask,
-                      "ek_loss_weight": ek,
                       **{k: r[k] for k in ("steps", "launches", "loss_first", "loss_last",
                                            "ms_per_step")},
                       "psnr": float(np.mean([v["psnr"] for v in views])),
@@ -2949,6 +2945,12 @@ def main(argv: list[str] | None = None) -> int:
     provenance(torch, field_agrees_with_cpu(torch, cfg))
     if provenance_only:
         return 0
+    seconds, t_last = {}, [time.perf_counter()]
+
+    def lap(phase: str) -> None:  # the host seconds since the last lap
+        now = time.perf_counter()
+        seconds[phase], t_last[0] = now - t_last[0], now
+
     # F=4 at tpu_opt.json's levels, the shapes its Testbed gives the kernels.
     tpu_opt_cfg = config_from_json(REPO / "configs" / "tpu_opt.json")[0]
     l4f8_cfg = config_from_json(REPO / "configs" / "l4f8.json")[0]
@@ -2959,24 +2961,38 @@ def main(argv: list[str] | None = None) -> int:
     sorted_f8 = kernel_phase_sorted(torch, st, cfg, 8)
     sorted_f4 = kernel_phase_sorted(torch, st, tpu_opt_cfg, 4)
     ops = op_path_phase(torch, st, sc, cfg)
+    lap("kernel_and_op_phases")
     images, cams = make_sphere_dataset(n_views=16, resolution=SCENE_RES, seed=0).to_device("cuda")
     train, state = training_phase(torch, tt, st, cfg, images, cams)
     prof = profile_phase(torch, tt, state, images, cams, cfg)
     del state, images, cams
+    lap("training_and_profile")
     tb, testbed = testbed_phase(torch, st, cfg, hyper)
     mesh_outputs_phase(torch, testbed)
+    lap("testbed_and_mesh_outputs")
     snap = snapshot_phase(torch, st, testbed)
     del testbed
+    lap("snapshot")
     wide = {name: wide_rows_phase(torch, st, name, tb) for name in WIDE_ROW_CONFIGS}
+    lap("wide_rows")
     dyn = dynamic_phase(torch, st, cfg, hyper)
+    lap("dynamic")
     camera = camera_phase(torch, st, cfg, hyper, prof["device_ms_per_step"])
+    lap("camera")
     lens = lens_phase(torch, st, cfg, hyper, prof, tb)
+    lap("lens")
     bf16 = bf16_phase(torch, st, cfg, hyper, tb, prof)
+    lap("bf16")
     cascade = cascade_phase(torch, st, cfg, hyper, tb)
+    lap("cascade")
     quality = quality_ab_phase(torch, st, cfg, hyper)
+    lap("quality_ab")
     sdf = sdf_phase(torch, st)
+    lap("sdf")
     image = image_phase(torch, st)
+    lap("image")
     parallel = parallel_phase(torch)
+    lap("parallel")
 
     def entry(name, replaces, rec, rec_f8, rec_f4, launches, extra=()):
         wide_keys = ("max_abs_err", "kernel_ms", "plain_ms", "bound_ms", "library_ms", *extra)
@@ -3026,6 +3042,7 @@ def main(argv: list[str] | None = None) -> int:
                                              "library_ms_per_step", "entry_ms_per_step",
                                              "bound_ms_per_step")}},
     ]
+    print("phase_seconds " + json.dumps(seconds), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -100,9 +100,7 @@ def init_field(generator: torch.Generator, config: FieldConfig, device="cpu") ->
     return tree_map(lambda t: t.to(device), params)
 
 
-# The CPU threads of the sphere-init fit (``_calibrate_sphere_init``): 8
-# keeps the init that 8-thread hosts drew before, the one-card H100 runs
-# PERF.md records among them.
+# The most CPU threads the sphere-init fit (``_calibrate_sphere_init``) runs on.
 _CALIBRATION_THREADS = 8
 
 
@@ -113,10 +111,10 @@ def _calibrate_sphere_init(sdf_mlp: Params, config: FieldConfig) -> Params:
     The ridge system is ill-conditioned, and the CPU's BLAS splits the
     Gram product's sum over 8192 rows by thread count: one thread count
     against another moves the fitted weights by up to ~1e-2.  The fit runs
-    on _CALIBRATION_THREADS threads whatever the host's count, so every
-    host draws the same init."""
+    on at most _CALIBRATION_THREADS threads, so a host with more draws the
+    init of one with that many (a host with fewer still draws its own)."""
     threads = torch.get_num_threads()
-    torch.set_num_threads(_CALIBRATION_THREADS)
+    torch.set_num_threads(min(threads, _CALIBRATION_THREADS))
     try:
         return _ridge_fit_sphere(sdf_mlp, config)
     finally:
