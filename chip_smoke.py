@@ -83,18 +83,19 @@ runs them, with the launch counts set to 0 just before and read just after:
     candidates spaced by the cone angle, the warp-metric dt), held to
     tests/test_cascades.py's bars after the prior sweep, 300 and 900 steps
     (kernel 1 once a step), with its held-out views, mesh and snapshots,
-    one step on the card against the CPU, the CLI on the scene's files and
+    one step on the card against the CPU, the CLI on the scene's files
+    (base.json with the same init radius, held to the same mesh gate) and
     50 steps at aabb_scale 16 (5 cascades);
-  * ``quality_ab_phase``: tests/test_compaction.py's A/Bs at the same width,
-    300 Testbed steps an arm, on held-out PSNR and the sphere's |sdf|:
-    ``hit_oversample`` 2 against 1, held to the tests' bars, and the mask
-    loss 0.1 against 0, printed against the same bars (it misses them at
-    this width).
+  * ``quality_ab_phase``: tests/test_compaction.py's A/Bs, 300 steps an
+    arm, on held-out PSNR and the sphere's |sdf|, held to the tests' bars:
+    ``hit_oversample`` 2 against 1 at the same width through the Testbed,
+    and both that pair and the mask loss 0.1 against 0 at
+    tests/e2e_drive.py's own size, where the tests set their bars.
 
 Before the kernel phases, one ``provenance`` line names the machine
-(library versions, NVIDIA driver, SM count, visible cards, host CPU) beside
-hashes of three computations, to tell machines apart by the last bits of
-a run; ``python3 chip_smoke.py --provenance`` prints that line and stops.
+(library versions, NVIDIA driver, SM count, visible cards, host CPU and
+threads) beside a hash of the field check's card outputs, to tell
+machines apart by the last bits of a run.
 
 Exits non-zero on any failure; the last line of a successful run is the
 device JSON, the line before it the ``kernels`` JSON.
@@ -187,17 +188,20 @@ CASCADE_SPLIT_X = 0.95  # between the spheres: the mesh has vertices on both sid
 # table and MLP gradients within this share of their max, as
 # field_agrees_with_cpu bounds the field's.
 CASCADE_STEP_LIMITS = (1e-4, 1e-2, 1e-3)
-CASCADE_CLI_STEPS = 100
+# The CLI's run: test_aabb_scale4_scene_trains' step count.  At 100 steps
+# this scene's field is still empty (PERF.md).
+CASCADE_CLI_STEPS = CASCADE_STEPS[0]
 CASCADE16_STEPS = 50
 # quality_ab_phase: tests/test_compaction.py's arms (hit_oversample, mask
-# loss weight) and bars, at its 300 steps.  A against B (compaction) is
-# gated; B against C (the mask loss) is printed against the same bars and
-# not gated: at this width the mask loss misses them, at base.json's
-# eikonal weight and at tests/e2e_drive.py's 0.1 alike (PERF.md; ROADMAP.md
-# Queue 3).
+# loss weight), its 300 steps and its bars, every pair gated.  At
+# base.json width through the Testbed: the compaction pair.  At
+# tests/e2e_drive.py's own size (QUALITY_AB_E2E_VIEWS training views of a
+# QUALITY_AB_E2E_RES^2 sphere scene, its small_config), where the tests
+# set their bars: both pairs.  The mask pair at base.json width misses
+# its |sdf| bar (PERF.md; ROADMAP.md Queue 3).
 QUALITY_AB_ARMS = {"A": (2, 0.1), "B": (1, 0.1), "C": (1, 0.0)}
 QUALITY_AB_PAIRS = {"compaction": ("A", "B"), "mask_loss": ("B", "C")}
-QUALITY_AB_GATED = ("compaction",)
+QUALITY_AB_E2E_VIEWS, QUALITY_AB_E2E_RES = 8, 48
 QUALITY_AB_STEPS = 300
 QUALITY_AB_PSNR_MARGIN = 1.5
 QUALITY_AB_SDF_FACTOR = 1.5
@@ -2229,36 +2233,66 @@ def cascade_step_vs_cpu(torch, tb) -> dict:
 def cascade_cli(torch, st) -> dict:
     """(f) of cascade_phase: the scene written with ``save_dataset_na`` at
     aabb_scale 4 (and its two held-out views) and trained through the CLI
-    with ``configs/base.json`` for CASCADE_CLI_STEPS steps with
-    ``--save_mesh`` and eval: kernel 1 once a step, 3 cascades, the mesh
-    and finite metrics."""
-    import numpy as np
-
+    for CASCADE_CLI_STEPS steps with ``--save_mesh`` and eval, on a copy of
+    ``configs/base.json`` whose network block sets the phase's
+    ``init_radius``: kernel 1 once a step, 3 cascades, each held-out view
+    above the all-black image, and the CLI's mesh held to cascade_outputs'
+    gate (more than 1000 triangles, vertices on both sides of
+    x = CASCADE_SPLIT_X)."""
     from neus2_tpu_torch import run
+    from neus2_tpu_torch.api import testbed as testbed_mod
+    from neus2_tpu_torch.data.dataset import load_dataset
     from neus2_tpu_torch.data.export import save_dataset_na
+    from neus2_tpu_torch.ops.image import psnr, srgb_eval_target
+    from neus2_tpu_torch.ops.warp import scene_aabb
+
+    meshes = []
+
+    def keep_mesh(save):
+        def wrapped(self, *args, **kw):
+            meshes.append(save(self, *args, **kw))
+            return meshes[-1]
+        return wrapped
 
     with tempfile.TemporaryDirectory() as d:
+        network = testbed_mod._read_json(REPO / "configs" / "base.json")
+        network["network"]["init_radius"] = CASCADE_INIT_RADIUS
+        (Path(d) / "network.json").write_text(json.dumps(network))
         train = save_dataset_na(cascade_scene(CASCADE_VIEWS, seed=0), Path(d) / "train")
         test = save_dataset_na(cascade_scene(2, seed=1), Path(d) / "test")
         torch.cuda.synchronize()
         reset_launches(st)
         t0 = time.perf_counter()
-        tb = run.main(["--scene", str(train), "--network", str(REPO / "configs" / "base.json"),
-                       "--n_steps", str(CASCADE_CLI_STEPS), "--save_mesh", "--test_transforms",
-                       str(test), "--output_dir", d, "--name", "cascade"])
+        with Patched(testbed_mod.Testbed, "compute_and_save_marching_cubes_mesh", keep_mesh):
+            tb = run.main(["--scene", str(train), "--network", str(Path(d) / "network.json"),
+                           "--n_steps", str(CASCADE_CLI_STEPS), "--save_mesh",
+                           "--test_transforms", str(test), "--output_dir", d,
+                           "--name", "cascade"])
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         launches = st.segment_sum_rows.launches
         metrics = json.loads((Path(d) / "cascade" / "metrics.json").read_text())
         mesh_ok = (Path(d) / "cascade" / "mesh" / "mesh.obj").exists()
+        targets = srgb_eval_target(load_dataset(test).to_device("cuda")[0])
+        black = [float(psnr(torch.zeros_like(t), t)) for t in targets]
+    verts, tris = meshes[0]
+    box = scene_aabb(tb.config.aabb_scale)
+    world_x = box.lo[0] + verts[:, 0] * box.diag[0]
+    sides = (int((world_x < CASCADE_SPLIT_X).sum()), int((world_x > CASCADE_SPLIT_X).sum()))
     out = {"steps": tb.training_step, "launches": launches, "wall_s": wall_s,
-           "occ_cascades": tb.config.occ_cascades, "psnr": metrics["psnr"],
-           "ssim_mean": metrics["ssim_mean"], "mesh_written": mesh_ok}
+           "occ_cascades": tb.config.occ_cascades, "init_radius": tb.config.field.init_radius,
+           "psnr": metrics["psnr"], "black_psnr": black, "ssim_mean": metrics["ssim_mean"],
+           "mesh_written": mesh_ok, "mesh_triangles": int(len(tris)),
+           "mesh_vertices_by_side": sides}
     print("cascade_phase cli " + json.dumps(out), flush=True)
     if (tb.training_step, launches, tb.config.occ_cascades) != (CASCADE_CLI_STEPS,) * 2 + (3,):
         raise AssertionError(f"cascade phase CLI: {out}")
-    if not (mesh_ok and np.isfinite(metrics["psnr"]).all()):
+    if not (mesh_ok and len(metrics["psnr"]) == len(black)
+            and all(p > b for p, b in zip(metrics["psnr"], black))):
         raise AssertionError(f"cascade phase CLI: outputs {out}")
+    if len(tris) <= 1000 or min(sides) == 0:
+        raise AssertionError(f"cascade phase CLI: mesh {len(tris)} triangles, {sides} vertices "
+                             f"on each side of x = {CASCADE_SPLIT_X}")
     return out
 
 
@@ -2313,7 +2347,8 @@ def cascade_phase(torch, st, cfg, hyper, testbed: dict) -> dict:
       (e) ``cascade_step_vs_cpu``: one step on the card against the CPU;
       then ``update_bitfield`` and one ``occupancy_update`` timed at 3
       cascades;
-      (f) ``cascade_cli``: the CLI on the scene's files;
+      (f) ``cascade_cli``: the CLI on the scene's files, the init radius
+          set in a copy of base.json;
       (g) ``cascade16``: the scene at aabb_scale 16.
 
     Fails at the first gate missed."""
@@ -2351,64 +2386,137 @@ def cascade_phase(torch, st, cfg, hyper, testbed: dict) -> dict:
     return out
 
 
-def quality_ab_phase(torch, st, cfg, hyper) -> dict:
-    """tests/test_compaction.py's two quality A/Bs at full base.json width:
-    QUALITY_AB_ARMS, each QUALITY_AB_STEPS Testbed steps on the 16-view
-    SCENE_RES^2 sphere scene from the same seed (kernel 1 once a step), the
-    held-out PSNR (the two views of held_out_views) and the EMA field's mean
-    |sdf| on tests/e2e_drive.py's shell (512 points of the true sphere
-    from ``np.random.default_rng(0)``).  Each pair of QUALITY_AB_PAIRS,
-    arm X against arm Y, is held to the tests' bars, PSNR_X > PSNR_Y -
-    QUALITY_AB_PSNR_MARGIN and |sdf|_X < QUALITY_AB_SDF_FACTOR |sdf|_Y +
-    1e-3; the phase fails if a pair of QUALITY_AB_GATED misses them."""
+def quality_testbed_arm(torch, st, cfg, hyper, oversample: int, mask: float,
+                        shell) -> dict:
+    """One arm at full base.json width: QUALITY_AB_STEPS Testbed steps on
+    the 16-view SCENE_RES^2 sphere scene (kernel 1 once a step), the two
+    held-out views of held_out_views and the EMA field's sdf on ``shell``."""
     import numpy as np
 
     from neus2_tpu_torch.api.testbed import Testbed
-    from neus2_tpu_torch.data.synthetic import SPHERE_CENTER, SPHERE_RADIUS, make_sphere_dataset
+    from neus2_tpu_torch.data.synthetic import make_sphere_dataset
     from neus2_tpu_torch.models.field import sdf_fn
+
+    tb = Testbed(config=dataclasses.replace(cfg, hit_oversample=oversample,
+                                            mask_loss_weight=mask),
+                 hyper=dataclasses.replace(hyper, mask_loss_weight=mask,
+                                           first_frame_max_training_step=QUALITY_AB_STEPS),
+                 seed=0, device="cuda")
+    tb.load_training_data_from_datasets([make_sphere_dataset(n_views=16, resolution=SCENE_RES,
+                                                             seed=0)])
+    r = run_testbed(torch, st, tb)
+    tb.prepare_for_test()
+    views = held_out_views(torch, tb, f"quality_ab hit_oversample {oversample} mask {mask}")
+    with torch.no_grad():
+        sdf, _ = sdf_fn(tb.state.ema_params, shell, tb.config.field)
+    return {**{k: r[k] for k in ("steps", "launches", "loss_first", "loss_last", "ms_per_step")},
+            "psnr": float(np.mean([v["psnr"] for v in views])),
+            "ssim": float(np.mean([v["ssim"] for v in views])),
+            "shell_abs_sdf": float(sdf.abs().mean()), "shell_mean_sdf": float(sdf.mean())}
+
+
+def quality_e2e_arm(torch, st, oversample: int, mask: float, shell) -> dict:
+    """One arm at tests/e2e_drive.py's own size, its loop on the card: its
+    ``small_config`` (8 levels of 2^15 rows up to resolution 256, 512 rays
+    of 32 samples, 96 candidates, eikonal 0.1), QUALITY_AB_E2E_VIEWS views
+    of the QUALITY_AB_E2E_RES^2 sphere scene and the next one held out,
+    QUALITY_AB_STEPS ``train_static`` steps (kernel 1 once a step), then
+    the held-out view at 64 samples and 128 candidates on black, one pass,
+    and the EMA field's sdf on ``shell``."""
+    from neus2_tpu_torch.data.synthetic import make_sphere_dataset
+    from neus2_tpu_torch.engine import train as tt
+    from neus2_tpu_torch.engine.rays import Cameras
+    from neus2_tpu_torch.engine.render import RenderConfig, render_image
+    from neus2_tpu_torch.models.field import FieldConfig, sdf_fn
+    from neus2_tpu_torch.ops.hashgrid import HashGridConfig
+    from neus2_tpu_torch.ops.image import psnr, srgb_eval_target
+
+    grid = HashGridConfig(n_levels=8, n_features_per_level=2, log2_hashmap_size=15,
+                          base_resolution=16,
+                          per_level_scale=HashGridConfig.per_level_scale_from_top(16, 256, 8))
+    cfg = tt.TrainConfig(field=FieldConfig(grid=grid), n_rays=512, samples_per_ray=32,
+                         n_candidates=96, ek_loss_weight=0.1, mask_loss_weight=mask,
+                         hit_oversample=oversample)
+    images, cams = make_sphere_dataset(n_views=QUALITY_AB_E2E_VIEWS + 1,
+                                       resolution=QUALITY_AB_E2E_RES).to_device("cuda")
+    train_cams = Cameras(poses=cams.poses[:-1], focal=cams.focal[:-1],
+                         principal=cams.principal[:-1], resolution=cams.resolution)
+    state = tt.init_train_state(cfg, QUALITY_AB_E2E_VIEWS, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    reset_launches(st)
+    t0 = time.perf_counter()
+    state = tt.train_static(state, images[:-1], train_cams, cfg, QUALITY_AB_STEPS)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = st.segment_sum_rows.launches
+    rcfg = RenderConfig(field=cfg.field, samples_per_ray=64, n_candidates=128, chunk=1 << 12)
+    with torch.no_grad():
+        sdf, _ = sdf_fn(state.ema_params, shell, cfg.field)
+        rgb, _, _ = render_image(state.ema_params, state.acc, state.occupancy, cams,
+                                 cams.poses[-1], cams.focal[-1], cams.principal[-1],
+                                 torch.Generator(device="cuda").manual_seed(1), rcfg,
+                                 background=0.0)
+    target = srgb_eval_target(images[-1])
+    out = {"steps": state.step, "launches": launches, "wall_s": wall_s,
+           "psnr": float(psnr(rgb, target)),
+           "black_psnr": float(psnr(torch.zeros_like(target), target)),
+           "shell_abs_sdf": float(sdf.abs().mean()), "shell_mean_sdf": float(sdf.mean())}
+    if not (out["steps"] == out["launches"] == QUALITY_AB_STEPS and torch.isfinite(rgb).all()
+            and out["psnr"] > out["black_psnr"]):
+        raise AssertionError(f"quality_ab e2e arm hit_oversample {oversample} mask {mask}: {out}")
+    return out
+
+
+def ab_pairs(arms: dict) -> dict:
+    """Each pair of QUALITY_AB_PAIRS among ``arms``, arm X against arm Y,
+    against the tests' bars: PSNR_X > PSNR_Y - QUALITY_AB_PSNR_MARGIN and
+    |sdf|_X < QUALITY_AB_SDF_FACTOR |sdf|_Y + 1e-3."""
+    pairs = {}
+    for what, (x, y) in QUALITY_AB_PAIRS.items():
+        if x in arms and y in arms:
+            a, b = arms[x], arms[y]
+            pairs[what] = {
+                "psnr_diff": a["psnr"] - b["psnr"],
+                "sdf_ratio": a["shell_abs_sdf"] / b["shell_abs_sdf"],
+                "meets_bars": bool(a["psnr"] > b["psnr"] - QUALITY_AB_PSNR_MARGIN
+                                   and a["shell_abs_sdf"]
+                                   < QUALITY_AB_SDF_FACTOR * b["shell_abs_sdf"] + 1e-3)}
+    return pairs
+
+
+def quality_ab_phase(torch, st, cfg, hyper) -> dict:
+    """tests/test_compaction.py's two quality A/Bs, arms QUALITY_AB_ARMS,
+    each QUALITY_AB_STEPS steps from the same seed, scored on held-out PSNR
+    and the EMA field's mean |sdf| on tests/e2e_drive.py's shell (512
+    points of the true sphere from ``np.random.default_rng(0)``):
+
+      * at full base.json width (``quality_testbed_arm``): arms A and B,
+        the compaction pair;
+      * at tests/e2e_drive.py's own size (``quality_e2e_arm``), where the
+        tests set their bars: arms A, B and C, both pairs.
+
+    Fails if any pair misses the bars (``ab_pairs``)."""
+    import numpy as np
+
+    from neus2_tpu_torch.data.synthetic import SPHERE_CENTER, SPHERE_RADIUS
 
     d = np.random.default_rng(0).normal(size=(512, 3))
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     shell = torch.tensor(SPHERE_CENTER + SPHERE_RADIUS * d, dtype=torch.float32, device="cuda")
     print("quality_ab_phase departures from base.json: the arms' hit_oversample and mask "
           "loss weight", flush=True)
-    arms = {}
-    for name, (oversample, mask) in QUALITY_AB_ARMS.items():
-        tb = Testbed(config=dataclasses.replace(cfg, hit_oversample=oversample,
-                                                mask_loss_weight=mask),
-                     hyper=dataclasses.replace(hyper, mask_loss_weight=mask,
-                                               first_frame_max_training_step=QUALITY_AB_STEPS),
-                     seed=0, device="cuda")
-        tb.load_training_data_from_datasets([make_sphere_dataset(n_views=16,
-                                                                 resolution=SCENE_RES, seed=0)])
-        r = run_testbed(torch, st, tb)
-        tb.prepare_for_test()
-        views = held_out_views(torch, tb, f"quality_ab {name}")
-        with torch.no_grad():
-            sdf, _ = sdf_fn(tb.state.ema_params, shell, tb.config.field)
-        arms[name] = {"hit_oversample": oversample, "mask_loss_weight": mask,
-                      **{k: r[k] for k in ("steps", "launches", "loss_first", "loss_last",
-                                           "ms_per_step")},
-                      "psnr": float(np.mean([v["psnr"] for v in views])),
-                      "ssim": float(np.mean([v["ssim"] for v in views])),
-                      "shell_abs_sdf": float(sdf.abs().mean())}
-        del tb
-    pairs = {}
-    for what, (x, y) in QUALITY_AB_PAIRS.items():
-        a, b = arms[x], arms[y]
-        pairs[what] = {
-            "psnr_diff": a["psnr"] - b["psnr"],
-            "sdf_ratio": a["shell_abs_sdf"] / b["shell_abs_sdf"],
-            "meets_bars": bool(a["psnr"] > b["psnr"] - QUALITY_AB_PSNR_MARGIN
-                               and a["shell_abs_sdf"]
-                               < QUALITY_AB_SDF_FACTOR * b["shell_abs_sdf"] + 1e-3),
-            "gated": what in QUALITY_AB_GATED}
-    out = {"arms": arms, "pairs": pairs,
-           "launches": {n: a["launches"] for n, a in arms.items()}}
+    testbed = {n: quality_testbed_arm(torch, st, cfg, hyper, *QUALITY_AB_ARMS[n], shell)
+               for n in ("A", "B")}
+    e2e = {n: quality_e2e_arm(torch, st, *arm, shell) for n, arm in QUALITY_AB_ARMS.items()}
+    out = {"testbed": {"arms": testbed, "pairs": ab_pairs(testbed)},
+           "e2e": {"arms": e2e, "pairs": ab_pairs(e2e)},
+           "launches": {"testbed": {n: a["launches"] for n, a in testbed.items()},
+                        "e2e": {n: a["launches"] for n, a in e2e.items()}}}
     print("quality_ab_phase " + json.dumps(out), flush=True)
-    missed = [w for w, p in pairs.items() if p["gated"] and not p["meets_bars"]]
+    missed = {f"{size} {what}": p for size in ("testbed", "e2e")
+              for what, p in out[size]["pairs"].items() if not p["meets_bars"]}
     if missed:
-        raise AssertionError(f"quality_ab_phase: {missed} miss the bars {pairs}")
+        raise AssertionError(f"quality_ab_phase: pairs miss the bars: {missed}")
     return out
 
 
@@ -2434,52 +2542,23 @@ def cublas_version() -> str:
 
 def provenance(torch, field: dict) -> dict:
     """What the machine is, for telling machines apart by the last bits of
-    a run: library versions, the NVIDIA driver, the card's SM count and L2, the
-    visible cards, the cuBLAS workspace setting, the host's CPU and the
-    SIMD paths of torch and numpy on it, and SHA-256s of three computations
-    (the field check's card outputs, the SDF mode's step-check loss and
-    gradients on the card, and a host-side one: the SDF phase's CSG mesh
-    and the training pool that phase draws from it)."""
-    import numpy as np
-
-    from neus2_tpu_torch.engine import sdf_mode
-    from neus2_tpu_torch.utils.tree import tree_leaves
-
+    a run: library versions, the NVIDIA driver, the card's SM count, the
+    visible cards, the cuBLAS workspace setting, the host's CPU and
+    threads, and the SHA-256 of the field check's card outputs (the SDF
+    mode's first step's is sdf_phase's ``step_vs_cpu.card_sha256``)."""
     props = torch.cuda.get_device_properties(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=driver_version", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.split()
     cpu = [line.split(":", 1)[1].strip() for line in
            Path("/proc/cpuinfo").read_text().splitlines() if line.startswith("model name")]
-    loss, grads = sdf_step(torch, "cuda")
-    with tempfile.TemporaryDirectory() as d:
-        write_csg_mesh(Path(d) / "csg.obj", SDF_MESH_RES)
-        verts, faces = sdf_mode.load_mesh_obj(Path(d) / "csg.obj")
-    verts, _, _ = sdf_mode.normalize_mesh(verts)
-    fit = sdf_mode.SdfFitConfig()
-    pool, dist = sdf_mode.generate_training_pool(
-        sdf_mode.TriangleBVH(verts, faces), verts, faces, fit.pool_size, seed=0,
-        surface_offset_scale=fit.surface_offset_scale)
-    h = hashlib.sha256()
-    for a in (verts, faces, pool, dist):
-        h.update(np.ascontiguousarray(a).tobytes())
-    try:
-        from numpy._core._multiarray_umath import __cpu_features__ as np_features
-    except ImportError:
-        from numpy.core._multiarray_umath import __cpu_features__ as np_features
     out = {
         "torch": torch.__version__, "cuda": torch.version.cuda, "cublas": cublas_version(),
         "cudnn": torch.backends.cudnn.version(), "nvidia_driver": smi[0] if smi else None,
-        "sm_count": props.multi_processor_count, "l2_bytes": props.L2_cache_size,
-        "visible_cards": torch.cuda.device_count(),
+        "sm_count": props.multi_processor_count, "visible_cards": torch.cuda.device_count(),
         "CUBLAS_WORKSPACE_CONFIG": os.environ.get("CUBLAS_WORKSPACE_CONFIG"),
         "cpu": cpu[0] if cpu else None, "cpu_threads": os.cpu_count(),
         "torch_threads": torch.get_num_threads(),
-        "torch_cpu_capability": torch.backends.cpu.get_cpu_capability(),
-        "numpy": np.__version__,
-        "numpy_avx512f": bool(np_features.get("AVX512F")),
         "field_card_sha256": field["card_sha256"],
-        "sdf_step_card_sha256": sha256_of([loss, *tree_leaves(grads)]),
-        "host_mesh_pool_sha256": h.hexdigest(),
     }
     print("provenance " + json.dumps(out), flush=True)
     return out
@@ -2910,8 +2989,7 @@ def parallel_phase(torch) -> dict:
     return out
 
 
-def main(argv: list[str] | None = None) -> int:
-    provenance_only = "--provenance" in (sys.argv[1:] if argv is None else argv)
+def main() -> int:
     try:
         import torch
     except ImportError:
@@ -2943,8 +3021,6 @@ def main(argv: list[str] | None = None) -> int:
 
     cfg, hyper = config_from_json(REPO / "configs" / "base.json")
     provenance(torch, field_agrees_with_cpu(torch, cfg))
-    if provenance_only:
-        return 0
     seconds, t_last = {}, [time.perf_counter()]
 
     def lap(phase: str) -> None:  # the host seconds since the last lap

@@ -158,6 +158,10 @@ def config_from_json(path: str | Path) -> tuple[TrainConfig, Hyperparams]:
         sdf_n_hidden=int(net.get("n_hidden_layers", 1)),
         rgb_hidden_dim=int(rgb_net.get("n_neurons", 64)),
         rgb_n_hidden=int(rgb_net.get("n_hidden_layers", 2)),
+        # Not a reference key: the geometric init's sphere radius in the
+        # warp frame.  A scene of several cascades wants it below the
+        # default, or the init's sphere reaches past its objects.
+        init_radius=float(net.get("init_radius", FieldConfig.init_radius)),
     )
     hp = cfg.get("hyperparams", {})
     hyper = Hyperparams(

@@ -317,7 +317,8 @@ def test_cli_trains_a_scene_larger_than_the_unit_cube(tmp_path):
     two spheres, one outside the unit cube) through the CLI: the Testbed
     derives 3 cascades and 512 candidates, trains, meshes over the
     aabb_scale-4 box and evaluates; final.msgpack holds the scale and the
-    3-cascade grid.  (One run: its prior sweep probes 3 x 128^3 cells.)"""
+    3-cascade grid.  The network json's ``init_radius`` reaches the field.
+    (One run: its prior sweep probes 3 x 128^3 cells.)"""
     spheres = [(np.array([0.5, 0.5, 0.5], np.float32), 0.25),
                (np.array([1.25, 0.5, 0.5], np.float32), 0.3)]
     kw = dict(resolution=24, cam_distance=2.6, aabb_scale=4)
@@ -326,13 +327,15 @@ def test_cli_trains_a_scene_larger_than_the_unit_cube(tmp_path):
     test = port_save_dataset_na(make_multi_sphere_dataset(spheres, n_views=2, seed=1, **kw),
                                 tmp_path / "test")
     assert json.loads(train.read_text())["aabb_scale"] == 4
-    (tmp_path / "net.json").write_text(json.dumps(NETWORK))
+    network = {**NETWORK, "network": {**NETWORK["network"], "init_radius": 0.2}}
+    (tmp_path / "net.json").write_text(json.dumps(network))
     common = ["--scene", str(train), "--network", str(tmp_path / "net.json"), "--output_dir",
               str(tmp_path / "out"), "--n_rays", "256", "--samples_per_ray", "16",
               "--test_transforms", str(test), "--eval_spp", "1", "--device", "cpu"]
     tb = run.main([*common, "--name", "a4", "--n_steps", "6", "--save_mesh",
                    "--mesh_resolution", "32"])
     assert tb.training_step == 6 and tb.config.aabb_scale == 4
+    assert tb.config.field.init_radius == 0.2
     assert (tb.config.occ_cascades, tb.config.n_candidates) == (3, 512)
     assert tb.config.cone_angle == 1.0 / 256 and tb.state.occupancy.n_cascades == 3
     out = tmp_path / "out" / "a4"
