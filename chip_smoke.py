@@ -31,8 +31,10 @@ runs them, with the launch counts set to 0 just before and read just after:
   * ``snapshot_phase``: on that trained Testbed, a native snapshot saved,
     loaded into a fresh Testbed (every leaf and a render bitwise) and
     resumed for 20 steps (kernel 1 once a step, losses bitwise the
-    original's), a reference-format export, import and re-export (byte-equal
-    blobs) with 5 steps from it, and the pyngp ``render(width, height)``;
+    original's), a legacy positional-list snapshot of it loaded (every
+    leaf bitwise) with 5 steps from it, a reference-format export, import
+    and re-export (byte-equal blobs) with 5 steps from it, and the pyngp
+    ``render(width, height)``;
   * ``wide_rows_phase``: once for each of the repo's wider-row
     configurations, ``configs/tpu_opt.json`` (7 levels x 4 features) and
     ``configs/l4f8.json`` (4 x 8) at their published widths: the field on
@@ -44,7 +46,9 @@ runs them, with the launch counts set to 0 just before and read just after:
     error map and its sharpness weighting on, over a 3-frame scene of a
     sphere moved by a known shift a frame: per-frame pose refinement (no
     kernel-1 launch), then the finetune phase (one a step), a held-out
-    view scored per frame, the canonical mesh at the end;
+    view scored per frame, the canonical mesh at the end; then the CLI on
+    2 frames of 100 steps with ``--tensorboard`` (``dynamic_cli``: the
+    global and per-frame event files against its log);
   * ``camera_phase``: the static Testbed at the same width with the whole
     learned camera group on (extrinsics, exposure and focal refinement,
     the envmap and distortion grid, the per-ray max level, depth
@@ -84,8 +88,10 @@ runs them, with the launch counts set to 0 just before and read just after:
     tests/test_cascades.py's bars after the prior sweep, 300 and 900 steps
     (kernel 1 once a step), with its held-out views, mesh and snapshots,
     one step on the card against the CPU, the CLI on the scene's files
-    (base.json with the same init radius, held to the same mesh gate) and
-    50 steps at aabb_scale 16 (5 cascades);
+    (base.json with the same init radius, held to the same mesh gate, with
+    ``--tensorboard``: its event files against its log, and host and
+    device ms a step over windows with and without a scalar step) and 50
+    steps at aabb_scale 16 (5 cascades);
   * ``quality_ab_phase``: tests/test_compaction.py's A/Bs, 300 steps an
     arm, on held-out PSNR and the sphere's |sdf|, held to the tests' bars:
     ``hit_oversample`` 2 against 1 at the same width through the Testbed,
@@ -95,7 +101,8 @@ runs them, with the launch counts set to 0 just before and read just after:
 Before the kernel phases, one ``provenance`` line names the machine
 (library versions, NVIDIA driver, SM count, visible cards, host CPU and
 threads) beside a hash of the field check's card outputs, to tell
-machines apart by the last bits of a run.
+machines apart by the last bits of a run, and the field init's hash at 1
+thread and at the host's count (it fails if they differ).
 
 Exits non-zero on any failure; the last line of a successful run is the
 device JSON, the line before it the ``kernels`` JSON.
@@ -188,9 +195,22 @@ CASCADE_SPLIT_X = 0.95  # between the spheres: the mesh has vertices on both sid
 # table and MLP gradients within this share of their max, as
 # field_agrees_with_cpu bounds the field's.
 CASCADE_STEP_LIMITS = (1e-4, 1e-2, 1e-3)
+# The step draws' seeds, each held to the limits: seed 5 missed them while
+# the card rounded the cone spacing and the ray directions otherwise than
+# the CPU (step_agreement.py reads each such form on seeds 5-8).
+CASCADE_STEP_SEEDS = (5, 8)
 # The CLI's run: test_aabb_scale4_scene_trains' step count.  At 100 steps
 # this scene's field is still empty (PERF.md).
 CASCADE_CLI_STEPS = CASCADE_STEPS[0]
+CLI_LOG_EVERY = 100  # the CLI logs (and writes its scalars) every 100 steps
+# cascade_cli's windows: host ms a step over PROFILE_WINDOW steps from
+# CLI_PROFILE_AT, which hold step 100's scalars, then device ms a step over
+# as many without; and host ms without, then device ms over steps that hold
+# step 200's, CLI_LOG_EVERY_LEAD steps before it.
+CLI_LOG_EVERY_LEAD = 4
+CLI_PROFILE_AT = CLI_LOG_EVERY - CLI_LOG_EVERY_LEAD
+DYNAMIC_CLI_STEPS = 100  # dynamic_cli: 2 frames of as many steps
+LEGACY_STEPS = 5  # snapshot_phase: steps after a legacy positional-list load
 CASCADE16_STEPS = 50
 # quality_ab_phase: tests/test_compaction.py's arms (hit_oversample, mask
 # loss weight), its 300 steps and its bars, every pair gated.  At
@@ -655,14 +675,16 @@ def fresh_testbed(tb):
     return t
 
 
-def same_leaves(a, b, what: str) -> int:
-    """Every leaf of two Testbeds' states (the generator's too) bitwise
-    equal -> the number of leaves."""
+def same_leaves(a, b, what: str, skip: tuple = ()) -> int:
+    """Every leaf of two Testbeds' states (the generator's too, unless
+    ``skip`` names it) bitwise equal -> the number of leaves compared."""
     import numpy as np
 
     from neus2_tpu_torch import interop
 
     x, y = interop.state_to_pathdict(a.state), interop.state_to_pathdict(b.state)
+    for k in skip:
+        del x[k], y[k]
     if x.keys() != y.keys():
         raise AssertionError(f"{what}: the leaf keys differ")
     for k in x:
@@ -724,6 +746,15 @@ def snapshot_phase(torch, st, tb) -> dict:
       * RESUME_STEPS more steps on the original and on the resumed
         Testbed, counts reset before each: kernel 1 once a step, finite
         losses, the losses and the final states bitwise equal;
+      * the state written as a legacy positional-list snapshot (its leaves
+        in the JAX package's flatten order, ``interop.jax_leaf_order``, a
+        zero threefry key last) and loaded into a fresh card Testbed: every
+        leaf but the generator's (reseeded: the file holds none) bitwise,
+        then LEGACY_STEPS steps from it, kernel 1 once a step.  The file
+        is written and read through the same ``jax_leaf_order``, so an
+        error in that order cancels here: this checks the load and the
+        card placement, and tests/test_torch_snapshot.py holds the order
+        against JAX's own flatten;
       * a reference-format export loaded into a third Testbed and exported
         again: ``n_params`` as ``ngp_n_params`` says, both blobs byte-equal,
         then REFERENCE_STEPS steps from it, kernel 1 once a step;
@@ -733,6 +764,8 @@ def snapshot_phase(torch, st, tb) -> dict:
         an orbit pose, timed with CUDA events and on the host clock."""
     import numpy as np
 
+    from neus2_tpu_torch import interop
+    from neus2_tpu_torch.api import msgpack_codec
     from neus2_tpu_torch.api import testbed as testbed_mod
     from neus2_tpu_torch.data.dataset import ngp_matrix_to_nerf
     from neus2_tpu_torch.utils.camera_path import orbit_path
@@ -793,6 +826,25 @@ def snapshot_phase(torch, st, tb) -> dict:
         out["resume"] = {"steps": RESUME_STEPS, "launches_original": n_orig,
                          "launches_resumed": n_res, "losses": [float(v) for v in again]}
         del resumed
+
+        legacy = Path(d) / "legacy.msgpack"
+        flat = interop.state_to_pathdict(tb.state)
+        leaves = [flat[k] for k in interop.jax_leaf_order(tb.state)[:-1]]
+        legacy.write_bytes(msgpack_codec.packb({
+            "leaves": leaves + [np.zeros(2, np.uint32)], "incremental": False,
+            "meta": {"training_step": np.int32(tb.training_step),
+                     "frame": np.int32(tb.current_training_time_frame)}}))
+        from_legacy = fresh_testbed(tb)
+        t0 = time.perf_counter()
+        from_legacy.load_snapshot(legacy)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        n_legacy = same_leaves(tb, from_legacy, "legacy load", skip=(".generator",))
+        losses, launches = train_on(from_legacy, LEGACY_STEPS)
+        out["legacy"] = {"leaves": n_legacy, "mb": legacy.stat().st_size / 1e6,
+                         "load_s": load_s, "steps": LEGACY_STEPS, "launches": launches,
+                         "losses": [float(v) for v in losses]}
+        del from_legacy
 
         ref, imported = reference_round_trip(torch, tb, Path(d))
         out.update({f"reference_{k}": ref[k] for k in ("save_s", "mb", "load_s")})
@@ -978,8 +1030,7 @@ def dynamic_phase(torch, st, cfg, hyper) -> dict:
         reset_launches(st)
         while True:
             if prof is None and tb.training_step in DYNAMIC_PROFILE_AT:
-                prof, prof_from = profile(activities=[ProfilerActivity.CPU,
-                                                      ProfilerActivity.CUDA]), len(steps)
+                prof, prof_from = profile(activities=[ProfilerActivity.CUDA]), len(steps)
                 prof.start()
             n0, hooks0 = st.segment_sum_rows.launches, len(frames)
             e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -996,11 +1047,12 @@ def dynamic_phase(torch, st, cfg, hyper) -> dict:
             if prof is not None and len(steps) - prof_from == PROFILE_WINDOW:
                 torch.cuda.synchronize()
                 prof.stop()
+                evs = device_events(prof)
                 top = [{"name": e.key[:60],
                         "ms_per_step": e.self_device_time_total / 1e3 / PROFILE_WINDOW}
-                       for e in device_events(prof)[:5]]
+                       for e in evs[:5]]
                 traced.setdefault((k, phase), []).append(
-                    (device_ms_per_step(prof, PROFILE_WINDOW), top))
+                    (device_ms_per_step(evs, PROFILE_WINDOW), top))
                 prof = None
     finally:
         testbed_mod.rebuild_error_cdf = real_rebuild
@@ -1056,6 +1108,54 @@ def dynamic_phase(torch, st, cfg, hyper) -> dict:
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
     print("dynamic_phase " + json.dumps(out), flush=True)
+    return out
+
+
+def dynamic_cli(torch, st, hyper) -> dict:
+    """The CLI on a dynamic scene at full base.json width with
+    ``--tensorboard``: 2 frames of DYNAMIC_CLI_STEPS steps each (16 views
+    at SCENE_RES^2 a frame, the sphere moved by DYNAMIC_SHIFT), written
+    with ``save_dataset_na`` as a directory of per-frame jsons.  Kernel 1
+    once a step that trains the field (not in frame 1's
+    ``predict_global_movement_training_step`` steps of pose refinement),
+    and the event files to ``tensorboard_matches_log``: the global writer
+    at steps 100 and 200, frame k's writer at its own step 100."""
+    from neus2_tpu_torch import run
+    from neus2_tpu_torch.data.export import save_dataset_na
+    from neus2_tpu_torch.data.synthetic import make_moving_sphere_frames
+
+    with tempfile.TemporaryDirectory() as d:
+        scene = Path(d) / "dynamic"
+        scene.mkdir()
+        frames = make_moving_sphere_frames(n_frames=2, translation_per_frame=DYNAMIC_SHIFT,
+                                           n_views=16, resolution=SCENE_RES)
+        for k, ds in enumerate(frames):
+            js = save_dataset_na(ds, Path(d) / f"frame{k}")
+            meta = json.loads(js.read_text())
+            for f in meta["frames"]:
+                f["file_path"] = str(js.parent / f["file_path"])
+            (scene / f"frame_{k:03d}.json").write_text(json.dumps(meta))
+        torch.cuda.synchronize()
+        reset_launches(st)
+        t0 = time.perf_counter()
+        tb = run.main(["--scene", str(scene), "--network", str(REPO / "configs" / "base.json"),
+                       "--n_steps", str(DYNAMIC_CLI_STEPS), "--next_frame_steps",
+                       str(DYNAMIC_CLI_STEPS), "--output_dir", d, "--name", "dyn",
+                       "--tensorboard"])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = st.segment_sum_rows.launches
+        scalars = tensorboard_matches_log(
+            Path(d) / "dyn", [DYNAMIC_CLI_STEPS, 2 * DYNAMIC_CLI_STEPS],
+            {0: [DYNAMIC_CLI_STEPS], 1: [DYNAMIC_CLI_STEPS]})
+    refine = hyper.predict_global_movement_training_step if hyper.predict_global_movement else 0
+    out = {"frames": tb.current_training_time_frame + 1, "frame_step": tb.training_step,
+           "launches": launches, "refine_steps": refine, "wall_s": wall_s,
+           "tensorboard": scalars}
+    print("dynamic_cli " + json.dumps(out), flush=True)
+    if (out["frames"], tb.training_step, launches) != (2, DYNAMIC_CLI_STEPS,
+                                                      2 * DYNAMIC_CLI_STEPS - refine):
+        raise AssertionError(f"dynamic CLI: {out}")
     return out
 
 
@@ -1370,7 +1470,7 @@ def run_testbed(torch, st, tb, profile_at: int | None = None, on_step=None) -> d
                 torch.cuda.synchronize()
                 t_trace = time.perf_counter()
                 out["host_ms_per_step"] = (t_trace - t0) * 1e3 / PROFILE_WINDOW
-                prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                prof = profile(activities=[ProfilerActivity.CUDA])
                 prof.start()
             if not tb.frame():
                 break
@@ -1379,7 +1479,7 @@ def run_testbed(torch, st, tb, profile_at: int | None = None, on_step=None) -> d
                 torch.cuda.synchronize()
                 prof.stop()
                 evs = device_events(prof)
-                out["device_ms_per_step"] = device_ms_per_step(prof, PROFILE_WINDOW)
+                out["device_ms_per_step"] = device_ms_per_step(evs, PROFILE_WINDOW)
                 out["device_launches_per_step"] = sum(e.count for e in evs) / PROFILE_WINDOW
                 out["top_device"] = [{"name": e.key[:60], "ms_per_step":
                                       e.self_device_time_total / 1e3 / PROFILE_WINDOW}
@@ -1619,16 +1719,17 @@ def host_timer(torch, sink: list):
     return wrap
 
 
-class FitRecorder:
-    """A fit mode's step wrapped for one run (the step returns (params,
-    opt_state, loss)): each step's loss kept (no host sync), and from step
-    ``profile_at`` host ms a step over PROFILE_WINDOW steps, then device
-    ms, device launches and the top kernels a step over as many traced with
-    ``torch.profiler``."""
+class StepWindows:
+    """A step wrapped for one run: from step ``profile_at`` host ms a step
+    over PROFILE_WINDOW steps, then device ms, device launches and the top
+    kernels a step over as many traced with ``torch.profiler``."""
 
     def __init__(self, torch, profile_at: int):
         self.torch, self.profile_at = torch, profile_at
-        self.losses, self.out, self.prof, self.steps = [], {}, None, 0
+        self.out, self.prof, self.steps = {}, None, 0
+
+    def seen(self, out) -> None:
+        """Called with each step's result."""
 
     def __call__(self, fn):
         from torch.profiler import ProfilerActivity, profile
@@ -1643,16 +1744,16 @@ class FitRecorder:
                 torch.cuda.synchronize()
                 self.out["host_ms_per_step"] = ((time.perf_counter() - self.t0) * 1e3
                                                 / PROFILE_WINDOW)
-                self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                self.prof = profile(activities=[ProfilerActivity.CUDA])
                 self.prof.start()
             out = fn(*args, **kw)
-            self.losses.append(out[2])
+            self.seen(out)
             self.steps += 1
             if self.prof is not None and self.steps == self.profile_at + 2 * PROFILE_WINDOW:
                 torch.cuda.synchronize()
                 self.prof.stop()
                 evs = device_events(self.prof)
-                self.out["device_ms_per_step"] = device_ms_per_step(self.prof, PROFILE_WINDOW)
+                self.out["device_ms_per_step"] = device_ms_per_step(evs, PROFILE_WINDOW)
                 self.out["device_launches_per_step"] = sum(e.count for e in evs) / PROFILE_WINDOW
                 self.out["top_device"] = [{"name": e.key[:60], "ms_per_step":
                                            e.self_device_time_total / 1e3 / PROFILE_WINDOW}
@@ -1661,6 +1762,18 @@ class FitRecorder:
             return out
 
         return step
+
+
+class FitRecorder(StepWindows):
+    """A fit mode's step (it returns (params, opt_state, loss)) under
+    StepWindows, each step's loss kept (no host sync)."""
+
+    def __init__(self, torch, profile_at: int):
+        super().__init__(torch, profile_at)
+        self.losses = []
+
+    def seen(self, out) -> None:
+        self.losses.append(out[2])
 
     def loss_curve(self, what: str) -> list:
         """Every loss as a float; fails unless all are finite and the last
@@ -1735,7 +1848,7 @@ def sdf_phase(torch, st) -> dict:
     """The SDF-from-mesh mode at full width (``default_sdf_field``: 14 x 2
     levels, 2^19 rows, SDF MLP 64 x 2; batch 2^16, pool 2^21), as a user
     runs it: ``run.main(["--mode", "sdf", ...])`` on the CSG scene's mesh
-    for 2,000 steps with ``--save_mesh``.
+    for SDF_STEPS steps with ``--save_mesh``.
 
     Before it: kernel 1 against its plain version at the mode's shape
     (2^16 points x 8 corners a level), and one step's loss and gradients
@@ -1882,8 +1995,8 @@ def image_kernel_phase(torch, st, cfg) -> dict:
 def image_phase(torch, st) -> dict:
     """The image-fit mode at ``Image2DConfig``'s defaults (12 x 2 levels,
     2^18 rows, MLP 64 x 2, batch 2^16), as a user runs it:
-    ``run.main(["--mode", "image", ...])`` on a 512^2 PNG for 1,000
-    steps.
+    ``run.main(["--mode", "image", ...])`` on a 512^2 PNG for
+    IMAGE_STEPS steps.
 
     Before it: kernel 4 at the mode's shapes (``image_kernel_phase``), and
     one step's table gradients on the card (kernel 4 once a level) against
@@ -2165,93 +2278,174 @@ def cascade_outputs(torch, tb) -> dict:
 
 
 def cascade_step_vs_cpu(torch, tb) -> dict:
-    """(e) of cascade_phase: one step's loss and gradients on the card and
-    on the CPU from the trained state and the same draws, within
-    CASCADE_STEP_LIMITS; and where the candidate probes land: the share
-    whose cascade (``mip_from_pos``) differs between the devices, from each
-    device's own positions and from the card's positions alone, the share
-    whose occupancy differs, and the largest relative difference of the
-    exponentially spaced candidate starts."""
+    """(e) of cascade_phase: for each seed of CASCADE_STEP_SEEDS, one
+    step's loss and gradients on the card and on the CPU from the trained
+    state and the same draws, within CASCADE_STEP_LIMITS; and where the
+    step's geometry differs between the devices: ray directions, the
+    exponentially spaced candidate starts, the share of candidate probes
+    whose cascade (``mip_from_pos``; from each device's own positions and
+    from the card's alone) or occupancy differs, and the batch's samples
+    (distances and positions).  -> {seed: readings}."""
     from neus2_tpu_torch import interop
     from neus2_tpu_torch.engine import occupancy as occ
     from neus2_tpu_torch.engine import train as tt
-    from neus2_tpu_torch.engine.march import coarse_intervals
+    from neus2_tpu_torch.engine.march import (CandidateProbe, coarse_intervals, draw_from_probe,
+                                              probe_candidates)
     from neus2_tpu_torch.engine.rays import rays_from_pixels
     from neus2_tpu_torch.models.delta import apply_accumulated_to_rays
 
     cfg = tb.config
-    draws = tt.sample_step_draws(torch.Generator(device="cuda").manual_seed(5), cfg,
-                                 tb.cameras.n_images)
     cpu_state, _ = interop.state_from_pathdict(
         interop.state_to_pathdict(tb.state), tt.init_train_state(cfg, tb.cameras.n_images,
                                                                  device="cpu"))
-    on = {"card": (tb.state, tb.images, tb.cameras, draws),
-          "host": (cpu_state, tb.images.cpu(), tb.cameras._replace(**{
-              k: v.cpu() for k, v in tb.cameras._asdict().items() if torch.is_tensor(v)}),
-                   draws.to("cpu"))}
+    devices = {"card": (tb.state, tb.images, tb.cameras),
+               "host": (cpu_state, tb.images.cpu(), tb.cameras._replace(**{
+                   k: v.cpu() for k, v in tb.cameras._asdict().items() if torch.is_tensor(v)}))}
 
-    def probes(state, images, cams, d):
+    def geometry(state, images, cams, d):
+        """The step's ray directions, candidate starts and probe positions,
+        and the batch's sample distances and positions, as the step draws
+        them."""
         o, dirs, _, _ = rays_from_pixels(cams, images, d.img_idx, d.uv0)
         o, dirs = apply_accumulated_to_rays(state.acc, o, dirs)
         tmin, tmax = cfg.aabb().ray_intersect(o, dirs)
         t0, dt = coarse_intervals(torch.clamp_min(tmin, cfg.near), tmax, cfg.n_candidates,
                                   cfg.cone_angle)
-        pos = o[:, None, :] + (t0 + d.probe_u * dt)[..., None] * dirs[:, None, :]
-        return t0, pos
+        probe_pos = o[:, None, :] + (t0 + d.probe_u * dt)[..., None] * dirs[:, None, :]
+        probe = probe_candidates(o, dirs, cfg.aabb(), state.occupancy, cfg.n_candidates,
+                                 d.probe_u, cone_angle=cfg.cone_angle, near=cfg.near)
+        sel = torch.argsort((~probe.hit).to(torch.uint8), stable=True)[:cfg.n_rays]
+        samples = draw_from_probe(CandidateProbe(*(x[sel] for x in probe)), o[sel], dirs[sel],
+                                  cfg.samples_per_ray, d.xi)
+        return dirs, t0, probe_pos, samples.t, samples.positions
 
-    launches = segment_sum_launches()
-    res = {}
-    for where, (state, images, cams, d) in on.items():
-        grads, aux, _ = tt.loss_and_grads({"params": state.params}, state, images, cams, d, cfg)
-        res[where] = (aux.loss, grads["params"], *probes(state, images, cams, d))
-    if segment_sum_launches() != launches + 1:
-        raise AssertionError("cascade step check: the card's backward skipped kernel 1")
-    (loss_g, grads_g, t0_g, pos_g), (loss_c, grads_c, t0_c, pos_c) = res["card"], res["host"]
     top = cfg.occ_cascades - 1
-    mip_g = occ.mip_from_pos(pos_g, top).cpu()
-    cpu_occ = cpu_state.occupancy
-    out = {
-        "loss_rel": abs(float(loss_g) - float(loss_c)) / abs(float(loss_c)),
-        **grads_agree(torch, grads_g, grads_c, cfg.field.grid.n_levels,
-                      CASCADE_STEP_LIMITS[1:], "cascade step"),
-        "probes": pos_c.shape[0] * pos_c.shape[1],
-        "cascade_differs_share": float((mip_g != occ.mip_from_pos(pos_c, top)).float().mean()),
-        "cascade_differs_share_same_positions": float(
-            (mip_g != occ.mip_from_pos(pos_g.cpu(), top)).float().mean()),
-        "occupancy_differs_share": float(
-            (occ.occupancy_at(tb.state.occupancy, pos_g).cpu()
-             != occ.occupancy_at(cpu_occ, pos_c)).float().mean()),
-        "candidate_t0_max_rel_diff": float(((t0_g.cpu() - t0_c).abs() / t0_c.abs()).max()),
-        "position_max_abs_diff": float((pos_g.cpu() - pos_c).abs().max()),
-    }
-    print("cascade_phase step_vs_cpu " + json.dumps(out), flush=True)
-    if out["loss_rel"] > CASCADE_STEP_LIMITS[0]:
-        raise AssertionError(f"cascade step check: loss {float(loss_g)} vs {float(loss_c)}")
+    out = {}
+    for seed in CASCADE_STEP_SEEDS:
+        draws = tt.sample_step_draws(torch.Generator(device="cuda").manual_seed(seed), cfg,
+                                     tb.cameras.n_images)
+        launches = segment_sum_launches()
+        res = {}
+        for where, (state, images, cams) in devices.items():
+            d = draws if where == "card" else draws.to("cpu")
+            grads, aux, _ = tt.loss_and_grads({"params": state.params}, state, images, cams, d,
+                                              cfg)
+            res[where] = (aux, grads["params"], geometry(state, images, cams, d))
+        if segment_sum_launches() != launches + 1:
+            raise AssertionError("cascade step check: the card's backward skipped kernel 1")
+        (aux_g, grads_g, geo_g), (aux_c, grads_c, geo_c) = res["card"], res["host"]
+        mip_g = occ.mip_from_pos(geo_g[2], top).cpu()
+        occ_g = occ.occupancy_at(tb.state.occupancy, geo_g[2]).cpu()
+        (dirs_g, t0_g, probe_g, t_g, pos_g) = (x.cpu() for x in geo_g)
+        (dirs_c, t0_c, probe_c, t_c, pos_c) = geo_c
+        loss_g, loss_c = float(aux_g.loss), float(aux_c.loss)
+        rec = {
+            "loss_rel": abs(loss_g - loss_c) / abs(loss_c),
+            "valid_samples": [int(aux_g.n_valid_samples), int(aux_c.n_valid_samples)],
+            "ray_dirs_differing": int((dirs_g != dirs_c).any(-1).sum()),
+            "rays": dirs_c.shape[0],
+            "candidate_t0_max_rel_diff": float(((t0_g - t0_c).abs() / t0_c.abs()).max()),
+            "probes": probe_c.shape[0] * probe_c.shape[1],
+            "cascade_differs_share": float((mip_g != occ.mip_from_pos(probe_c, top))
+                                           .float().mean()),
+            "cascade_differs_share_same_positions": float(
+                (mip_g != occ.mip_from_pos(probe_g, top)).float().mean()),
+            "occupancy_differs_share": float(
+                (occ_g != occ.occupancy_at(cpu_state.occupancy, probe_c)).float().mean()),
+            "probe_position_max_abs_diff": float((probe_g - probe_c).abs().max()),
+            "sample_t_max_abs_diff": float((t_g - t_c).abs().max()),
+            "samples_differing": int((pos_g != pos_c).any(-1).sum()),
+            "sample_position_max_abs_diff": float((pos_g - pos_c).abs().max()),
+        }
+        try:  # the line is printed whether the gradients agree or not
+            rec.update(grads_agree(torch, grads_g, grads_c, cfg.field.grid.n_levels,
+                                   CASCADE_STEP_LIMITS[1:], f"cascade step, seed {seed}"))
+        finally:
+            print(f"cascade_phase step_vs_cpu seed {seed} " + json.dumps(rec), flush=True)
+        if rec["loss_rel"] > CASCADE_STEP_LIMITS[0]:
+            raise AssertionError(f"cascade step check, seed {seed}: loss {loss_g} vs {loss_c}")
+        out[seed] = rec
     return out
+
+
+def tensorboard_matches_log(out: Path, steps: list, frame_steps: dict) -> dict:
+    """A CLI run's ``--tensorboard`` files under ``out``/logs, read with
+    the port's ``read_scalars`` (the card's machine has no TensorBoard),
+    against the losses its log.txt prints: loss/rgb, loss/ek and loss/mask
+    in logs/ at exactly the global ``steps``, and loss/rgb in
+    logs/frame_<k> at exactly ``frame_steps[k]``, each value finite and
+    within 5e-6 (the printed 5 decimals) plus one float32 rounding of the
+    printed loss -> {directory: {tag: [(step, value)]}}."""
+    import math
+    import re
+
+    from neus2_tpu_torch.utils.event_file import read_scalars
+
+    line = re.compile(r"^step (\d+) \(frame (\d+) local (\d+)\) loss=(\S+) ek=(\S+) "
+                      r"mask=(\S+) ")
+    printed = [m.groups() for m in map(line.match, (out / "log.txt").read_text().splitlines())
+               if m]
+    want = {".": {"loss/rgb": [], "loss/ek": [], "loss/mask": []}}
+    for step, frame, local, rgb, ek, mask in printed:
+        for tag, v in (("loss/rgb", rgb), ("loss/ek", ek), ("loss/mask", mask)):
+            want["."][tag].append((int(step), float(v)))
+        if frame_steps:
+            want.setdefault(f"frame_{frame}", {"loss/rgb": []})["loss/rgb"].append(
+                (int(local), float(rgb)))
+    logs = out / "logs"
+    got = {str(d.relative_to(logs)): read_scalars(d)
+           for d in sorted({p.parent for p in logs.rglob("events.out.tfevents.*")})}
+    steps_want = {".": {t: list(steps) for t in want["."]},
+                  **{f"frame_{k}": {"loss/rgb": list(v)} for k, v in frame_steps.items()}}
+    steps_got = {d: {t: [s for s, _ in v] for t, v in tags.items()} for d, tags in got.items()}
+    steps_printed = {d: {t: [s for s, _ in v] for t, v in tags.items()} for d, tags in want.items()}
+    if not steps_got == steps_printed == steps_want:
+        raise AssertionError(f"tensorboard files {steps_got}, log.txt {steps_printed}, "
+                             f"want {steps_want}")
+    for d, tags in got.items():
+        for tag, rows in tags.items():
+            for (step, v), (_, w) in zip(rows, want[d][tag]):
+                if not (math.isfinite(v) and abs(v - w) <= 5e-6 + abs(w) * 2**-23):
+                    raise AssertionError(f"tensorboard {d} {tag} at {step}: {v}, log.txt {w}")
+    return got
 
 
 def cascade_cli(torch, st) -> dict:
     """(f) of cascade_phase: the scene written with ``save_dataset_na`` at
     aabb_scale 4 (and its two held-out views) and trained through the CLI
-    for CASCADE_CLI_STEPS steps with ``--save_mesh`` and eval, on a copy of
-    ``configs/base.json`` whose network block sets the phase's
-    ``init_radius``: kernel 1 once a step, 3 cascades, each held-out view
-    above the all-black image, and the CLI's mesh held to cascade_outputs'
-    gate (more than 1000 triangles, vertices on both sides of
-    x = CASCADE_SPLIT_X)."""
+    for CASCADE_CLI_STEPS steps with ``--save_mesh``, eval and
+    ``--tensorboard``, on a copy of ``configs/base.json`` whose network
+    block sets the phase's ``init_radius``: kernel 1 once a step, 3
+    cascades, each held-out view above the all-black image, the CLI's mesh
+    held to cascade_outputs' gate (more than 1000 triangles, vertices on
+    both sides of x = CASCADE_SPLIT_X), and the event files to
+    ``tensorboard_matches_log``.  What the flag costs, read in the same
+    run (between its scalar steps the flag runs no code): the host
+    seconds of each ``add_scalar``, and two StepWindows over
+    ``Testbed.frame``, the first's host window holding step 100 (the log
+    line and its scalars) and its traced window none, the second's host
+    window none and its traced window step 200."""
     from neus2_tpu_torch import run
     from neus2_tpu_torch.api import testbed as testbed_mod
     from neus2_tpu_torch.data.dataset import load_dataset
     from neus2_tpu_torch.data.export import save_dataset_na
     from neus2_tpu_torch.ops.image import psnr, srgb_eval_target
     from neus2_tpu_torch.ops.warp import scene_aabb
+    from neus2_tpu_torch.utils.event_file import EventFileWriter
 
-    meshes = []
+    meshes, scalar_s = [], []
 
     def keep_mesh(save):
         def wrapped(self, *args, **kw):
             meshes.append(save(self, *args, **kw))
             return meshes[-1]
+        return wrapped
+
+    def time_scalar(add):
+        def wrapped(self, *args, **kw):
+            t0 = time.perf_counter()
+            add(self, *args, **kw)
+            scalar_s.append(time.perf_counter() - t0)
         return wrapped
 
     with tempfile.TemporaryDirectory() as d:
@@ -2263,11 +2457,15 @@ def cascade_cli(torch, st) -> dict:
         torch.cuda.synchronize()
         reset_launches(st)
         t0 = time.perf_counter()
-        with Patched(testbed_mod.Testbed, "compute_and_save_marching_cubes_mesh", keep_mesh):
+        scalar_steps = StepWindows(torch, CLI_PROFILE_AT)
+        quiet_steps = StepWindows(torch, 2 * CLI_LOG_EVERY - CLI_LOG_EVERY_LEAD - PROFILE_WINDOW)
+        with Patched(testbed_mod.Testbed, "compute_and_save_marching_cubes_mesh", keep_mesh), \
+                Patched(testbed_mod.Testbed, "frame", lambda f: quiet_steps(scalar_steps(f))), \
+                Patched(EventFileWriter, "add_scalar", time_scalar):
             tb = run.main(["--scene", str(train), "--network", str(Path(d) / "network.json"),
                            "--n_steps", str(CASCADE_CLI_STEPS), "--save_mesh",
                            "--test_transforms", str(test), "--output_dir", d,
-                           "--name", "cascade"])
+                           "--name", "cascade", "--tensorboard"])
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         launches = st.segment_sum_rows.launches
@@ -2275,6 +2473,9 @@ def cascade_cli(torch, st) -> dict:
         mesh_ok = (Path(d) / "cascade" / "mesh" / "mesh.obj").exists()
         targets = srgb_eval_target(load_dataset(test).to_device("cuda")[0])
         black = [float(psnr(torch.zeros_like(t), t)) for t in targets]
+        scalars = tensorboard_matches_log(
+            Path(d) / "cascade", list(range(CLI_LOG_EVERY, CASCADE_CLI_STEPS + 1, CLI_LOG_EVERY)),
+            {})
     verts, tris = meshes[0]
     box = scene_aabb(tb.config.aabb_scale)
     world_x = box.lo[0] + verts[:, 0] * box.diag[0]
@@ -2283,7 +2484,16 @@ def cascade_cli(torch, st) -> dict:
            "occ_cascades": tb.config.occ_cascades, "init_radius": tb.config.field.init_radius,
            "psnr": metrics["psnr"], "black_psnr": black, "ssim_mean": metrics["ssim_mean"],
            "mesh_written": mesh_ok, "mesh_triangles": int(len(tris)),
-           "mesh_vertices_by_side": sides}
+           "mesh_vertices_by_side": sides, "tensorboard": scalars["."],
+           "add_scalar_calls": len(scalar_s), "add_scalar_ms_mean": 1e3 * sum(scalar_s)
+           / max(len(scalar_s), 1), "add_scalar_ms_max": 1e3 * max(scalar_s, default=0.0),
+           "host_ms_per_step": {"with_scalar_step": scalar_steps.out["host_ms_per_step"],
+                                "without": quiet_steps.out["host_ms_per_step"]},
+           "device_ms_per_step": {"with_scalar_step": quiet_steps.out["device_ms_per_step"],
+                                  "without": scalar_steps.out["device_ms_per_step"]},
+           "device_launches_per_step": {
+               "with_scalar_step": quiet_steps.out["device_launches_per_step"],
+               "without": scalar_steps.out["device_launches_per_step"]}}
     print("cascade_phase cli " + json.dumps(out), flush=True)
     if (tb.training_step, launches, tb.config.occ_cascades) != (CASCADE_CLI_STEPS,) * 2 + (3,):
         raise AssertionError(f"cascade phase CLI: {out}")
@@ -2344,11 +2554,12 @@ def cascade_phase(torch, st, cfg, hyper, testbed: dict) -> dict:
           outer sphere's ring occupancy and |sdf| against
           tests/test_cascades.py's bars;
       (d) ``cascade_outputs``: held-out views, mesh, snapshots;
-      (e) ``cascade_step_vs_cpu``: one step on the card against the CPU;
+      (e) ``cascade_step_vs_cpu``: one step on the card against the CPU,
+          for each of CASCADE_STEP_SEEDS' draws;
       then ``update_bitfield`` and one ``occupancy_update`` timed at 3
       cascades;
       (f) ``cascade_cli``: the CLI on the scene's files, the init radius
-          set in a copy of base.json;
+          set in a copy of base.json, with ``--tensorboard``;
       (g) ``cascade16``: the scene at aabb_scale 16.
 
     Fails at the first gate missed."""
@@ -2540,12 +2751,27 @@ def cublas_version() -> str:
     return ".".join(parts) + " " + libs[0]
 
 
-def provenance(torch, field: dict) -> dict:
+def init_sha256(torch, cfg, threads: int) -> str:
+    """SHA-256 of the field's init (seed 0) drawn on ``threads`` CPU threads."""
+    from neus2_tpu_torch.models.field import init_field
+    from neus2_tpu_torch.utils.tree import tree_leaves
+
+    before = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    try:
+        return sha256_of(tree_leaves(init_field(torch.Generator().manual_seed(0), cfg.field)))
+    finally:
+        torch.set_num_threads(before)
+
+
+def provenance(torch, cfg, field: dict) -> dict:
     """What the machine is, for telling machines apart by the last bits of
     a run: library versions, the NVIDIA driver, the card's SM count, the
     visible cards, the cuBLAS workspace setting, the host's CPU and
-    threads, and the SHA-256 of the field check's card outputs (the SDF
-    mode's first step's is sdf_phase's ``step_vs_cpu.card_sha256``)."""
+    threads, the SHA-256 of the field check's card outputs (the SDF
+    mode's first step's is sdf_phase's ``step_vs_cpu.card_sha256``) and of
+    the field's init drawn on 1 CPU thread and on the host's count.  Fails
+    if the two inits differ: every reading after the init follows from it."""
     props = torch.cuda.get_device_properties(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=driver_version", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.split()
@@ -2559,8 +2785,12 @@ def provenance(torch, field: dict) -> dict:
         "cpu": cpu[0] if cpu else None, "cpu_threads": os.cpu_count(),
         "torch_threads": torch.get_num_threads(),
         "field_card_sha256": field["card_sha256"],
+        "init_sha256_1_thread": init_sha256(torch, cfg, 1),
+        "init_sha256_host_threads": init_sha256(torch, cfg, torch.get_num_threads()),
     }
     print("provenance " + json.dumps(out), flush=True)
+    if out["init_sha256_1_thread"] != out["init_sha256_host_threads"]:
+        raise AssertionError("the field's init depends on the CPU thread count")
     return out
 
 
@@ -2682,9 +2912,10 @@ def device_events(prof) -> list:
                   key=lambda e: e.self_device_time_total, reverse=True)
 
 
-def device_ms_per_step(prof, steps: int) -> float:
-    """The card's busy time a step over a traced window of ``steps``."""
-    ms = sum(e.self_device_time_total for e in device_events(prof)) / 1e3 / steps
+def device_ms_per_step(evs: list, steps: int) -> float:
+    """The card's busy time a step from a traced window's ``device_events``
+    over ``steps``."""
+    ms = sum(e.self_device_time_total for e in evs) / 1e3 / steps
     if ms <= 0:
         raise AssertionError("the profiler saw no device time in the traced window")
     return ms
@@ -2716,7 +2947,7 @@ def profile_phase(torch, tt, state, images, cams, cfg, steps: int = PROFILE_STEP
     device = device_events(prof)
     host = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CPU),
                   key=lambda e: e.self_cpu_time_total, reverse=True)
-    device_ms = device_ms_per_step(prof, steps)
+    device_ms = device_ms_per_step(device, steps)
 
     def top(evs, attr, k):
         return [{"name": e.key[:80], "ms_per_step": getattr(e, attr) / 1e3 / steps,
@@ -3020,7 +3251,7 @@ def main() -> int:
     print(f"build_s {time.perf_counter() - t0:.1f}", flush=True)
 
     cfg, hyper = config_from_json(REPO / "configs" / "base.json")
-    provenance(torch, field_agrees_with_cpu(torch, cfg))
+    provenance(torch, cfg, field_agrees_with_cpu(torch, cfg))
     seconds, t_last = {}, [time.perf_counter()]
 
     def lap(phase: str) -> None:  # the host seconds since the last lap
@@ -3052,6 +3283,7 @@ def main() -> int:
     wide = {name: wide_rows_phase(torch, st, name, tb) for name in WIDE_ROW_CONFIGS}
     lap("wide_rows")
     dyn = dynamic_phase(torch, st, cfg, hyper)
+    dyn_cli = dynamic_cli(torch, st, hyper)
     lap("dynamic")
     camera = camera_phase(torch, st, cfg, hyper, prof["device_ms_per_step"])
     lap("camera")
@@ -3088,9 +3320,11 @@ def main() -> int:
          "wide_rows_launches_per_step": {n: w["launches_per_step"] for n, w in wide.items()},
          "l4f8_shape": {k: k1_l4f8[k] for k in ("levels", "max_abs_err", "kernel_ms",
                                                 "plain_ms", "library_ms", "bound_ms")},
-         "sort_ms": k1["sort_ms"], "launches_per_step": tb["launches_per_step"],
+         "sort_ms": k1["sort_ms"], "sort_ms_f4": k1_f4["sort_ms"],
+         "sort_ms_f8": k1_f8["sort_ms"], "launches_per_step": tb["launches_per_step"],
          "train_static_launches": train["launches"],
          "dynamic_launches": dyn["launches_by_phase"],
+         "dynamic_cli_launches": dyn_cli["launches"],
          "camera_launches": camera["launches"],
          "lens_launches": lens["launches_all"], "bf16_launches": bf16["launches"],
          "cascade_launches": cascade["launches"], "quality_ab_launches": quality["launches"],
@@ -3099,6 +3333,7 @@ def main() -> int:
              k: sdf["kernel"][k] for k in ("updates_per_level", "max_abs_err", "kernel_ms",
                                            "sort_ms", "plain_ms", "library_ms", "bound_ms")},
          "resume_launches": {"native": snap["resume"]["launches_resumed"],
+                             "legacy": snap["legacy"]["launches"],
                              "reference": snap["reference"]["launches"]}},
     ] + [
         entry(name, replaces, sorted_k[name], sorted_f8[name], sorted_f4[name],

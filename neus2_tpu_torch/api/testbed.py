@@ -985,7 +985,9 @@ class Testbed:
     def load_snapshot(self, path: str | Path):
         """Restore a native snapshot, from either package: every leaf the
         file holds, in this state's dtypes and on its device; a leaf it
-        lacks keeps its current value (named once).  A file without the
+        lacks keeps its current value (named once).  A legacy file (a
+        positional list of the JAX state's leaves, no ``format``) is keyed
+        by the JAX flatten order first.  A file without the
         step generator's state (one the JAX package wrote) reseeds the
         generator from the Testbed's seed.  The counters and the dynamic
         phase flags follow the file's meta block.  A data-parallel run loads
@@ -993,17 +995,22 @@ class Testbed:
         payload = msgpack_codec.unpackb(Path(path).read_bytes())
         if isinstance(payload, dict) and "snapshot" in payload:
             return self.load_reference_snapshot(path)
-        if not isinstance(payload, dict) or payload.get("format") != "pathdict-v1":
-            raise ValueError(
-                f"{path}: not a path-keyed ('pathdict-v1') snapshot; the legacy "
-                "positional-list format is read only by the JAX package")
+        legacy = (isinstance(payload, dict) and "format" not in payload
+                  and isinstance(payload.get("leaves"), list))
+        if not legacy and (not isinstance(payload, dict)
+                           or payload.get("format") != "pathdict-v1"):
+            raise ValueError(f"{path}: neither a path-keyed ('pathdict-v1') nor a legacy "
+                             "positional-list native snapshot")
+        incremental = bool(payload.get("incremental", False))
         placed = self.state is not None
         like = self._state_or_fresh()
         if self.zero1 and placed:  # the whole optimizer state, as the file holds it
             like = like._replace(opt_state=gather_opt_state(like.opt_state, like.params,
                                                             self.parallel))
-        state, missing = interop.state_from_pathdict(
-            payload["leaves"], like, bool(payload.get("incremental", False)))
+        stored = payload["leaves"]
+        if legacy:
+            stored = interop.legacy_leaves_to_pathdict(stored, like, incremental)
+        state, missing = interop.state_from_pathdict(stored, like, incremental)
         if ".generator" in missing:
             missing.remove(".generator")
             state = state._replace(

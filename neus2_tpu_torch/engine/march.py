@@ -7,6 +7,11 @@ the occupancy bitfield, then draws exactly ``budget`` stratified samples
 from the inverse CDF of its occupied length.  The random draws (probe
 jitter ``u_c`` and stratified ``xi``) are arguments, so tests can inject
 the JAX package's draws.
+
+The exponential spacing's powers are taken in float64 and rounded once
+(the JAX package takes them in float32), so that the card and the CPU
+place the candidates alike and a step on one holds against a step on the
+other (``step_agreement.py`` reads what each such form buys on the card).
 """
 
 from __future__ import annotations
@@ -52,8 +57,11 @@ def coarse_intervals(tmin: torch.Tensor, tmax: torch.Tensor, n_candidates: int,
         return t0, dt.expand_as(t0)
     t_lo = torch.clamp_min(tmin, 10.0 * MIN_CONE_STEPSIZE)
     t_hi = torch.maximum(tmax, t_lo * (1.0 + 1e-4))
-    r = (t_hi / t_lo) ** (1.0 / n_candidates)
-    t0 = t_lo[:, None] * r[:, None] ** steps
+    # The float32 r and r^i as the JAX package takes them, each rounded
+    # once from float64: the card's float32 pow rounds r otherwise than the
+    # CPU's, and r^i carries that i-fold (starts 6e-5 apart at i = 511).
+    r = ((t_hi / t_lo).double() ** (1.0 / n_candidates)).float()
+    t0 = t_lo[:, None] * (r.double()[:, None] ** steps.double()).float()
     return t0, t0 * (r[:, None] - 1.0)
 
 

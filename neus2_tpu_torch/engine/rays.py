@@ -136,8 +136,7 @@ def pixel_to_ray(cameras: Cameras, img_idx: torch.Tensor, uv: torch.Tensor,
         # reference's sentinel outside the box, so they composite to the
         # background.
         dir_cam, valid = ftheta_undistortion(cameras.ftheta, uv - principal)
-        direction = (poses[..., :3] * dir_cam[..., None, :]).sum(-1)
-        direction = direction / torch.linalg.norm(direction, dim=-1, keepdim=True)
+        direction = _rotate_unit(poses[..., :3], dir_cam)
         sentinel = constant((1000.0, 0.0, 0.0), torch.float32, uv.device)
         return torch.where(valid[..., None], poses[..., 3], sentinel), direction
     focal = cameras.focal[img_idx]
@@ -146,9 +145,17 @@ def pixel_to_ray(cameras: Cameras, img_idx: torch.Tensor, uv: torch.Tensor,
         x, y = iterative_undistortion(cameras.distortion, xy[..., 0], xy[..., 1])
         xy = torch.stack([x, y], -1)
     dir_cam = torch.cat([xy, torch.ones_like(xy[..., :1])], -1)
-    direction = (poses[..., :3] * dir_cam[..., None, :]).sum(-1)
-    direction = direction / torch.linalg.norm(direction, dim=-1, keepdim=True)
-    return poses[..., 3], direction
+    return poses[..., 3], _rotate_unit(poses[..., :3], dir_cam)
+
+
+def _rotate_unit(rot: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``rot @ v`` normalized, each sum written out in one order: a
+    reduction's order differs between the card and the CPU, and ray
+    directions one ulp apart place samples in other cells."""
+    x, y, z = v[..., 0], v[..., 1], v[..., 2]
+    d = [rot[..., i, 0] * x + rot[..., i, 1] * y + rot[..., i, 2] * z for i in range(3)]
+    norm = torch.sqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
+    return torch.stack([c / norm for c in d], -1)
 
 
 def rays_from_pixels(cameras: Cameras, images: torch.Tensor,

@@ -16,6 +16,8 @@ package's types.
 the JAX package's native snapshot format (``pathdict-v1``): host arrays
 keyed by the strings JAX's ``tree_util.keystr`` gives the JAX state's
 leaves, so a snapshot either package writes loads into the other.
+``legacy_leaves_to_pathdict`` keys the positional leaf list of a legacy
+native snapshot (``jax_leaf_order``: JAX's flatten order) the same way.
 
 ``config_from_jax``, ``dataset_from_jax`` and ``cameras_from_jax`` carry
 the configs (``compute_dtype`` mapped by its name, bfloat16 to
@@ -28,6 +30,7 @@ mode's parameters (the SDF mode's are field parameters: ``params_from_jax``).
 from __future__ import annotations
 
 import dataclasses
+import re
 from pathlib import Path
 from typing import Any
 
@@ -169,6 +172,63 @@ def state_from_pathdict(flat: dict, like: TrainState,
         step=parts[".step"], frame_step=parts[".frame_step"], generator=generator,
     )
     return state, missing
+
+
+# The field order of each NamedTuple in the JAX ``TrainState``, by its key
+# prefix: JAX flattens a NamedTuple in field order, where ``_walk`` sorts
+# the dicts ``_state_parts`` makes of the occupancy and error-map states.
+# The TrainState's (neus2_tpu/engine/train.py:175-188) ends with the
+# threefry key, the one leaf the port has no counterpart of; the delta's
+# and the camera group's Adam are (count, mu, nu) NamedTuples.
+_JAX_FIELDS = {
+    "": ("params", "ema_params", "opt_state", "delta", "delta_opt_state", "acc", "cam",
+         "cam_opt_state", "occupancy", "error_map", "step", "frame_step", "key"),
+    ".occupancy": ("density", "bitfield", "ema_step"),
+    ".error_map": ("error_map", "cdf", "sharpness_grid"),
+    ".delta_opt_state[0]": ("count", "mu", "nu"),
+    ".cam_opt_state[0]": ("count", "mu", "nu"),
+}
+_KEY_PART = re.compile(r"\.(\w+)|\[(\d+)\]|\['([^']*)'\]")
+
+
+def _jax_flatten_rank(key: str) -> tuple:
+    """Where JAX's ``tree_util`` flattening puts the leaf of ``key``:
+    NamedTuple fields in declaration order, sequence items by index, dict
+    keys sorted."""
+    rank, parent = [], ""
+    for m in _KEY_PART.finditer(key):
+        attr, index, name = m.groups()
+        rank.append(_JAX_FIELDS[parent].index(attr) if attr is not None
+                    else int(index) if index is not None else name)
+        parent += m.group(0)
+    return tuple(rank)
+
+
+def jax_leaf_order(like: TrainState, incremental: bool = False) -> list[str]:
+    """The keys of the leaves of the JAX state that ``like`` stands for, in
+    JAX's flatten order, ending with the threefry key ``.key``: the order of a
+    legacy native snapshot's positional list.  ``incremental`` leaves out
+    the field's and the delta's optimizer states, as an incremental file
+    does."""
+    keys = [key for prefix, tree, attr in _state_parts(like)
+            if not (incremental and prefix.startswith(_OPTIMIZER_PARTS))
+            for key, _ in _walk(tree, prefix, attr)]
+    return sorted(keys, key=_jax_flatten_rank) + [".key"]
+
+
+def legacy_leaves_to_pathdict(leaves: list, like: TrainState,
+                              incremental: bool = False) -> dict:
+    """A legacy native snapshot's positional ``leaves`` (the JAX state's
+    ``tree_util.tree_leaves``, from before path-keyed snapshots) keyed as
+    ``state_to_pathdict`` keys them, ``like`` giving the structure; the
+    threefry key, the last leaf, is dropped."""
+    keys = jax_leaf_order(like, incremental)
+    if len(leaves) != len(keys):
+        raise ValueError(f"legacy snapshot holds {len(leaves)} leaves; this state has "
+                         f"{len(keys)} (its JAX counterpart's, the threefry key included)")
+    flat = dict(zip(keys, leaves))
+    del flat[".key"]
+    return flat
 
 
 def tree_to_torch(tree: Any, device="cpu") -> Any:

@@ -12,6 +12,7 @@ import dataclasses
 import functools
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 
 from neus2_tpu_torch.constants import SDF_BIAS, VARIANCE_INIT
@@ -100,43 +101,58 @@ def init_field(generator: torch.Generator, config: FieldConfig, device="cpu") ->
     return tree_map(lambda t: t.to(device), params)
 
 
-# The most CPU threads the sphere-init fit (``_calibrate_sphere_init``) runs on.
-_CALIBRATION_THREADS = 8
+# The sphere-init fit sums its Gram matrix over fixed chunks of this many rows.
+_FIT_CHUNK = 256
 
 
 def _calibrate_sphere_init(sdf_mlp: Params, config: FieldConfig) -> Params:
     """Ridge-fit the last layer's sdf column so raw_sdf(x) ~ |x-0.5| - r -
     bias on the actual hidden activations (grid features zeroed).
 
-    The ridge system is ill-conditioned, and the CPU's BLAS splits the
-    Gram product's sum over 8192 rows by thread count: one thread count
-    against another moves the fitted weights by up to ~1e-2.  The fit runs
-    on at most _CALIBRATION_THREADS threads, so a host with more draws the
-    init of one with that many (a host with fewer still draws its own)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(min(threads, _CALIBRATION_THREADS))
-    try:
-        return _ridge_fit_sphere(sdf_mlp, config)
-    finally:
-        torch.set_num_threads(threads)
-
-
-def _ridge_fit_sphere(sdf_mlp: Params, config: FieldConfig) -> Params:
+    The ridge system is ill-conditioned, so the order of its sums shows in
+    the fitted weights (a BLAS product, which splits a sum by thread count,
+    moved them by up to ~0.2 between thread counts).  The fit runs in
+    float64 on numpy's elementwise products and sums, over fixed chunks of
+    rows in a fixed order, with a hand-written Cholesky solve: no BLAS or
+    LAPACK call, so every host draws the same init whatever its threads."""
     gen = torch.Generator().manual_seed(7)
-    x = torch.rand((8192, 3), generator=gen)
-    h = torch.cat([x, torch.zeros((x.shape[0], config.grid.output_dim))], -1)
+    x = torch.rand((8192, 3), generator=gen).double().numpy()
     layers = [dict(l) for l in sdf_mlp["layers"]]
-    for layer in layers[:-1]:
-        h = torch.relu(h @ layer["w"] + layer["b"])
-    target = torch.linalg.norm(x - 0.5, dim=-1) - config.init_radius - config.sdf_bias
-    design = torch.cat([h, torch.ones((h.shape[0], 1))], -1)
-    gram = design.T @ design + 1e-4 * torch.eye(design.shape[1])
-    beta = torch.linalg.solve(gram, design.T @ target)
+    hidden = [(l["w"].double().numpy(), l["b"].double().numpy()) for l in layers[:-1]]
+    target = np.sqrt(((x - 0.5) ** 2).sum(-1)) - config.init_radius - config.sdf_bias
+    n = layers[-1]["w"].shape[0] + 1  # the last layer's inputs and a bias column
+    gram, rhs = np.zeros((n, n)), np.zeros(n)
+    for lo in range(0, x.shape[0], _FIT_CHUNK):
+        xc = x[lo:lo + _FIT_CHUNK]
+        h = np.concatenate([xc, np.zeros((len(xc), config.grid.output_dim))], -1)
+        for w, b in hidden:
+            h = np.maximum((h[:, :, None] * w[None]).sum(1) + b, 0.0)
+        design = np.concatenate([h, np.ones((len(h), 1))], -1)
+        gram += (design[:, :, None] * design[:, None, :]).sum(0)
+        rhs += (design * target[lo:lo + _FIT_CHUNK, None]).sum(0)
+    beta = torch.from_numpy(_cholesky_solve(gram + 1e-4 * np.eye(n), rhs)).float()
     last = {"w": layers[-1]["w"].clone(), "b": layers[-1]["b"].clone()}
     last["w"][:, 0] = beta[:-1]
     last["b"][0] = beta[-1]
     layers[-1] = last
     return {"layers": layers}
+
+
+def _cholesky_solve(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """x with a x = b for a symmetric positive definite ``a``, by Cholesky
+    with row sums in a fixed order."""
+    n = len(b)
+    low = np.zeros_like(a)
+    for j in range(n):
+        low[j, j] = np.sqrt(a[j, j] - (low[j, :j] * low[j, :j]).sum())
+        low[j + 1:, j] = (a[j + 1:, j] - (low[j + 1:, :j] * low[j, :j]).sum(1)) / low[j, j]
+    y = np.zeros(n)
+    for i in range(n):
+        y[i] = (b[i] - (low[i, :i] * y[:i]).sum()) / low[i, i]
+    x = np.zeros(n)
+    for i in reversed(range(n)):
+        x[i] = (y[i] - (low[i + 1:, i] * x[i + 1:]).sum()) / low[i, i]
+    return x
 
 
 @functools.lru_cache(maxsize=None)

@@ -127,6 +127,9 @@ def parse_args(argv=None):
     p.add_argument("--near_distance", type=float, default=None,
                    help="training rays start this far from the camera (< 0 or unset: "
                         "the config's)")
+    p.add_argument("--tensorboard", action="store_true",
+                   help="log the losses every 100 steps as TensorBoard scalars under "
+                        "<output_dir>/<name>/logs (dynamic scenes: also logs/frame_<k>)")
     p.add_argument("--grid_stats", action="store_true",
                    help="log per-level hash-grid weight stats after training")
     p.add_argument("--device", default="cuda", help="torch device (default: the card)")
@@ -333,36 +336,58 @@ def train(tb, args, out: Path, log):
     steps, ``<step>.msgpack`` every ``--save_snapshot_every`` steps and
     ``final.msgpack`` at the end; for a dynamic scene, when frame k
     finishes, its incremental snapshot, its transform and (with
-    ``--dynamic_save_mesh``) its canonical mesh."""
+    ``--dynamic_save_mesh``) its canonical mesh.  With ``--tensorboard``
+    (on every rank, as the JAX CLI opens its writers), every 100 steps the
+    three losses go to logs/ at the global step and, for a dynamic scene,
+    the rgb loss to logs/frame_<k> (opened on first use) at the frame's
+    step; every writer is closed on the way out."""
+    from neus2_tpu_torch.utils.event_file import EventFileWriter
+
     ckpt = out / "checkpoints"
-    t0 = time.time()
-    # From the frame a snapshot resumed in (the JAX CLI starts at 0, so a
-    # resume into frame k >= 1 rewrites frame 0's files with frame k's state).
-    step, last_frame = 0, tb.current_training_time_frame
-    while tb.frame():
-        step += 1
-        if tb.current_training_time_frame != last_frame:
-            # The switch has folded frame last_frame's delta into acc.
-            last_frame = tb.current_training_time_frame
-            log(f"-> time frame {last_frame} at step {step} [{time.time() - t0:.1f}s]")
-            tb.save_snapshot(ckpt / f"frame_{last_frame - 1}.msgpack", incremental=True)
-            tb.save_transform(ckpt / f"transform_{last_frame - 1}.txt")
-            if args.dynamic_save_mesh:
-                mesh_path = out / "mesh" / f"frame_{last_frame - 1:04d}.obj"
-                tb.compute_and_save_marching_cubes_mesh(mesh_path,
-                                                        resolution=args.mesh_resolution)
-                log(f"  per-frame mesh -> {mesh_path}")
-        if step % 100 == 0:
-            log(f"step {step} (frame {tb.current_training_time_frame} local "
-                f"{tb.training_step}) loss={tb.loss_scalar:.5f} ek={tb.ek_loss_scalar:.5f} "
-                f"mask={tb.mask_loss_scalar:.5f} [{time.time() - t0:.1f}s]")
-        if args.save_snapshot_every and step % args.save_snapshot_every == 0:
-            tb.save_snapshot(ckpt / f"{step}.msgpack")
-    log(f"training done: {step} steps in {time.time() - t0:.1f}s")
-    tb.save_snapshot(ckpt / "final.msgpack")
-    if tb.is_dynamic:
-        # The last frame's delta is never folded; save_transform includes it.
-        tb.save_transform(ckpt / f"transform_{tb.current_training_time_frame}.txt")
+    writer = EventFileWriter(out / "logs") if args.tensorboard else None
+    frame_writers = {}
+    try:
+        t0 = time.time()
+        # From the frame a snapshot resumed in (the JAX CLI starts at 0, so a
+        # resume into frame k >= 1 rewrites frame 0's files with frame k's state).
+        step, last_frame = 0, tb.current_training_time_frame
+        while tb.frame():
+            step += 1
+            if tb.current_training_time_frame != last_frame:
+                # The switch has folded frame last_frame's delta into acc.
+                last_frame = tb.current_training_time_frame
+                log(f"-> time frame {last_frame} at step {step} [{time.time() - t0:.1f}s]")
+                tb.save_snapshot(ckpt / f"frame_{last_frame - 1}.msgpack", incremental=True)
+                tb.save_transform(ckpt / f"transform_{last_frame - 1}.txt")
+                if args.dynamic_save_mesh:
+                    mesh_path = out / "mesh" / f"frame_{last_frame - 1:04d}.obj"
+                    tb.compute_and_save_marching_cubes_mesh(mesh_path,
+                                                            resolution=args.mesh_resolution)
+                    log(f"  per-frame mesh -> {mesh_path}")
+            if step % 100 == 0:
+                log(f"step {step} (frame {tb.current_training_time_frame} local "
+                    f"{tb.training_step}) loss={tb.loss_scalar:.5f} ek={tb.ek_loss_scalar:.5f} "
+                    f"mask={tb.mask_loss_scalar:.5f} [{time.time() - t0:.1f}s]")
+                if writer is not None:
+                    writer.add_scalar("loss/rgb", tb.loss_scalar, step)
+                    writer.add_scalar("loss/ek", tb.ek_loss_scalar, step)
+                    writer.add_scalar("loss/mask", tb.mask_loss_scalar, step)
+                    if tb.is_dynamic:  # reference run_dynamic.py:296-305 logs both
+                        k = tb.current_training_time_frame
+                        if k not in frame_writers:
+                            frame_writers[k] = EventFileWriter(out / "logs" / f"frame_{k}")
+                        frame_writers[k].add_scalar("loss/rgb", tb.loss_scalar, tb.training_step)
+            if args.save_snapshot_every and step % args.save_snapshot_every == 0:
+                tb.save_snapshot(ckpt / f"{step}.msgpack")
+        log(f"training done: {step} steps in {time.time() - t0:.1f}s")
+        tb.save_snapshot(ckpt / "final.msgpack")
+        if tb.is_dynamic:
+            # The last frame's delta is never folded; save_transform includes it.
+            tb.save_transform(ckpt / f"transform_{tb.current_training_time_frame}.txt")
+    finally:
+        for w in [writer, *frame_writers.values()]:
+            if w is not None:
+                w.close()
 
 
 def _write_png(path: Path, rgb) -> None:

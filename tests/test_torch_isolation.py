@@ -46,6 +46,27 @@ def test_source_names_no_jax(path):
                          text, re.M)
     assert "neus2_tpu." not in text.replace("neus2_tpu_torch.", "")
     assert not re.search(r"\bjax\b|\boptax\b|\bjnp\b", text)
+    assert "torch.utils.tensorboard" not in text
+
+
+def test_tensorboard_logging_needs_no_tensorboard(tmp_path):
+    """``--tensorboard`` writes and reads its event files with the port's
+    own code: importing the CLI and the event-file module, writing a
+    scalar and reading it back loads no ``tensorboard``, ``tensorflow`` or
+    ``protobuf`` module (the card's machine has none of them)."""
+    code = (
+        "import json, sys\n"
+        "import neus2_tpu_torch.run\n"
+        "from neus2_tpu_torch.utils.event_file import EventFileWriter, read_scalars\n"
+        f"w = EventFileWriter({str(tmp_path)!r}); w.add_scalar('loss/rgb', 0.5, 100); w.close()\n"
+        f"assert read_scalars({str(tmp_path)!r}) == {{'loss/rgb': [(100, 0.5)]}}\n"
+        "print(json.dumps(sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('tensorboard', 'tensorflow', 'tensorboardX') or k.startswith('google.protobuf'))))\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=PKG.parent)
+    assert res.returncode == 0, res.stderr
+    assert json.loads(res.stdout.strip().splitlines()[-1]) == []
 
 
 def test_entry_points_refuse_cpu_fallback(monkeypatch):

@@ -197,3 +197,25 @@ def test_prior_sweep_and_update_match_jax(monkeypatch, n_cascades):
     # Every cascade was probed, and the outer ones hold occupied cells.
     assert all(bool((got.density[k] != 0).any()) for k in range(n_cascades))
     assert bool(got.bitfield[-1].any())
+
+
+@pytest.mark.parametrize("aabb_scale", [4, 16])
+def test_spacing_is_rounded_once_from_float64(aabb_scale):
+    """The exponential spacing, which the card and the CPU must agree on
+    bit for bit so that a step on one probes the other's candidates: the
+    float32 r = (t_hi / t_lo)^(1/C) and r^i each rounded once from float64
+    (a float32 pow rounds r by device, and r^i carries that i-fold).  No
+    tolerance."""
+    _, _, rng = _grids(3, seed=5)
+    R, C = 64, 160
+    o, d = _rays(R, rng, spread=0.15)
+    to, td = torch.from_numpy(o), torch.from_numpy(d)
+    cone = tmarch.cone_angle_for_scene(aabb_scale)
+    tmin, tmax = taabb(aabb_scale).ray_intersect(to, td)
+    t0, dt = tmarch.coarse_intervals(tmin, tmax, C, cone)
+    lo = np.maximum(tmin.numpy(), np.float32(10.0 * tmarch.MIN_CONE_STEPSIZE))
+    hi = np.maximum(tmax.numpy(), lo * np.float32(1.0 + 1e-4))
+    r = ((hi / lo).astype(np.float64) ** (1.0 / C)).astype(np.float32)
+    ri = (r.astype(np.float64)[:, None] ** np.arange(C)).astype(np.float32)
+    np.testing.assert_array_equal(t0.numpy(), lo[:, None] * ri)
+    np.testing.assert_array_equal(dt.numpy(), lo[:, None] * ri * (r[:, None] - np.float32(1.0)))

@@ -367,9 +367,8 @@ def _parser(parse_args) -> argparse.ArgumentParser:
 def test_cli_takes_the_jax_command_line():
     """One JAX-spelled command line carrying every option both CLIs
     define, each set away from its default, parses to the same namespace
-    in both, key by key.  The port has one option more, ``--device``; the
-    JAX CLI one, ``--tensorboard`` (not ported: the card's machine has no
-    tensorboard package)."""
+    in both, key by key.  The port has one option more, ``--device``, and
+    none fewer."""
     jax_p, port_p = _parser(jrun.parse_args), _parser(run.parse_args)
 
     def options(p):
@@ -377,11 +376,9 @@ def test_cli_takes_the_jax_command_line():
 
     jax_o, port_o = options(jax_p), options(port_p)
     assert set(port_o) - set(jax_o) == {"--device"}
-    assert set(jax_o) - set(port_o) == {"--tensorboard"}
+    assert set(jax_o) - set(port_o) == set()
     argv = []
     for flag, action in jax_o.items():
-        if flag == "--tensorboard":
-            continue
         if action.nargs == 0:  # store_true
             argv.append(flag)
         elif action.choices:
@@ -393,7 +390,7 @@ def test_cli_takes_the_jax_command_line():
         else:
             argv += [flag, f"value-of-{flag[2:]}"]
     ours, theirs = vars(run.parse_args(argv)), vars(jrun.parse_args(argv))
-    assert ours.pop("device") == "cuda" and not theirs.pop("tensorboard")
+    assert ours.pop("device") == "cuda" and theirs["tensorboard"] is True
     assert ours.keys() == theirs.keys()
     for k in theirs:
         assert ours[k] == theirs[k], k

@@ -332,9 +332,58 @@ def test_resume_continues_bitwise(port_base, tmp_path, monkeypatch):
     assert_same_leaves(interop.state_to_pathdict(c.state), interop.state_to_pathdict(a.state))
 
 
-def test_legacy_positional_snapshot_is_refused(tmp_path):
+def _legacy_file(path, state, incremental: bool, frame: int = 1, step: int = 3) -> list:
+    """``state`` written as the JAX package wrote snapshots before they were
+    path-keyed: its ``tree_util.tree_leaves`` as a list, no ``format``
+    (an incremental file flattens a template without the field's and the
+    delta's optimizer states) -> the leaves."""
+    if incremental:
+        state = state._replace(opt_state=(), delta_opt_state=())
+    leaves = [np.asarray(leaf) for leaf in jax.tree_util.tree_leaves(jax.device_get(state))]
+    path.write_bytes(serialization.msgpack_serialize({
+        "leaves": leaves, "incremental": incremental,
+        "meta": {"training_step": np.int32(step), "frame": np.int32(frame)}}))
+    return leaves
+
+
+@pytest.mark.parametrize("incremental", [False, True])
+def test_legacy_positional_snapshot_loads_into_both(jtb, port_base, tmp_path, incremental):
+    """A legacy positional-list snapshot written from a JAX state loads
+    into the port with every leaf equal to the JAX package's own load of
+    it: the port keys the list by the JAX flatten order (NamedTuple fields
+    in declaration order, dicts sorted), which is not the pathdict's sorted
+    order of the occupancy and error-map fields."""
+    jtb.state = _perturbed(jtb.state, seed=2 + int(incremental))
     path = tmp_path / "legacy.msgpack"
-    path.write_bytes(msgpack.packb({"leaves": [1, 2], "meta": {}}))
-    tb = ttb.Testbed(device="cpu")
-    with pytest.raises(ValueError, match="legacy"):
+    leaves = _legacy_file(path, jtb.state, incremental)
+    tb = copy.deepcopy(port_base)
+    fresh_opt = port_pathdict(tb.state)
+    flat, _ = jax.tree_util.tree_flatten_with_path(
+        jtb.state._replace(opt_state=(), delta_opt_state=()) if incremental else jtb.state)
+    order = [jax.tree_util.keystr(p) for p, _ in flat]
+    assert order[-1] == ".key" and len(order) == len(leaves)
+    assert interop.jax_leaf_order(tb.state, incremental) == order
+    assert list(interop.legacy_leaves_to_pathdict(leaves, tb.state, incremental)) == order[:-1]
+
+    jax_before = jax_pathdict(jtb.state)
+    jtb.load_snapshot(path)
+    tb.load_snapshot(path)
+    assert (tb.current_training_time_frame, tb.training_step) == (1, 3)
+    assert (jtb.current_training_time_frame, jtb.training_step) == (1, 3)
+    want = {k: v for k, v in jax_pathdict(jtb.state).items() if not k.startswith(_JAX_ONLY)}
+    if incremental:  # each package keeps its own optimizer states
+        for k in want:
+            if k.startswith((".opt_state", ".delta_opt_state")):
+                np.testing.assert_array_equal(want[k], jax_before[k], err_msg=k)
+                want[k] = fresh_opt[k]
+    assert_same_leaves(port_pathdict(tb.state), want)
+
+
+def test_legacy_snapshot_of_a_leaf_too_few_is_refused(jtb, port_base, tmp_path):
+    path = tmp_path / "short.msgpack"
+    leaves = jax.tree_util.tree_leaves(jax.device_get(jtb.state))[:-1]
+    path.write_bytes(serialization.msgpack_serialize({"leaves": [np.asarray(x) for x in leaves]}))
+    tb = copy.deepcopy(port_base)
+    n = len(leaves)
+    with pytest.raises(ValueError, match=f"holds {n} leaves; this state has {n + 1}"):
         tb.load_snapshot(path)
