@@ -96,7 +96,16 @@ runs them, with the launch counts set to 0 just before and read just after:
     arm, on held-out PSNR and the sphere's |sdf|, held to the tests' bars:
     ``hit_oversample`` 2 against 1 at the same width through the Testbed,
     and both that pair and the mask loss 0.1 against 0 at
-    tests/e2e_drive.py's own size, where the tests set their bars.
+    tests/e2e_drive.py's own size, where the tests set their bars;
+  * ``protocol_phase``: the quality tools (``neus2_tpu_torch/tools/``):
+    validate_csg at its default protocol with the error map on (24 + 2
+    CSG views at 256^2, 300 steps, paused and resumed into a fresh Testbed
+    at 150, then the held-out views, |SDF| on the ground-truth points and
+    the Chamfer distance of the 256^3 mesh), held to the TPU package's
+    tool run on the CPU at the same protocol, and its snapshot evaluated
+    again by csg_eval to the same PSNRs; and bucket_ab on the sphere
+    at factor 0.45 until the adaptive bucket 1 has trained 100 steps:
+    kernel 1 once a step in each chunk and in both buckets.
 
 Before the kernel phases, one ``provenance`` line names the machine
 (library versions, NVIDIA driver, SM count, visible cards, host CPU and
@@ -225,6 +234,28 @@ QUALITY_AB_E2E_VIEWS, QUALITY_AB_E2E_RES = 8, 48
 QUALITY_AB_STEPS = 300
 QUALITY_AB_PSNR_MARGIN = 1.5
 QUALITY_AB_SDF_FACTOR = 1.5
+# protocol_phase: the quality tools (neus2_tpu_torch/tools/).  (a)
+# validate_csg at its default protocol (24 + 2 CSG views at 256^2, L14/F2
+# fp32, hit_oversample 2) with the error map on, PROTOCOL_STEPS steps,
+# paused at PROTOCOL_RESUME_AT and resumed into a fresh Testbed, then its
+# whole eval, held to the TPU package's tools_tpu_validate_csg.py run on
+# the CPU at the same protocol and step count (PROTOCOL_CPU_REF; PERF.md
+# §6) with PROTOCOL_PSNR_MARGIN dB and PROTOCOL_GEOMETRY_FACTOR
+# times its |SDF| and Chamfer.  (b) bucket_ab on the sphere at factor
+# PROTOCOL_BUCKET_FACTOR until bucket 1 has trained PROTOCOL_BUCKET_AFTER
+# steps, at most PROTOCOL_BUCKET_CAP steps.  csg_eval's second eval of
+# (a)'s snapshot renders the same field with the same seeded passes, so
+# its held-out PSNRs agree with (a)'s to PROTOCOL_REEVAL_ATOL_DB.
+PROTOCOL_STEPS = 300
+PROTOCOL_RESUME_AT = 150
+PROTOCOL_CPU_REF = {"held_out_psnr": 25.80963134765625, "surface_sdf_err": 0.020114991813898087,
+                    "chamfer": 0.019785234704613686}
+PROTOCOL_PSNR_MARGIN = 1.0
+PROTOCOL_GEOMETRY_FACTOR = 1.5
+PROTOCOL_BUCKET_FACTOR = 0.45
+PROTOCOL_BUCKET_AFTER = 100
+PROTOCOL_BUCKET_CAP = 1500
+PROTOCOL_REEVAL_ATOL_DB = 0.01
 # The batched layouts' index padding past each level's M updates, as the
 # JAX package pads them (round_up(M, 128) + 2 * chunk).
 STREAM_PAD = 4096
@@ -2731,6 +2762,93 @@ def quality_ab_phase(torch, st, cfg, hyper) -> dict:
     return out
 
 
+def protocol_validate(st, work: Path) -> dict:
+    """protocol_phase (a): two calls of validate_csg, the first paused at
+    PROTOCOL_RESUME_AT by ``--chunk-steps``, the second resumed from its
+    snapshot in a fresh Testbed; kernel 1 once a step in each chunk.  Then
+    csg_eval on the final snapshot at the same samples and spp, which must
+    read the error map's use from it and give the same held-out PSNRs."""
+    from neus2_tpu_torch.tools import csg_eval, validate_csg
+
+    argv = [str(PROTOCOL_STEPS), "--error-map", "--budget-s", "1e9", "--workdir", str(work)]
+    if validate_csg.run(validate_csg.parse_args(
+            [*argv, "--chunk-steps", str(PROTOCOL_RESUME_AT)])) is not None:
+        raise AssertionError("protocol_phase: validate_csg did not pause")
+    opts = validate_csg.parse_args(argv)
+    result = validate_csg.run(opts)
+    rec = json.loads((work / f"{validate_csg.run_tag(opts)}_record.json").read_text())
+    chunks = rec["chunks"]
+    out = {"result": result, "chunks": chunks, "bucket_history": rec["bucket_history"],
+           "eval_s": rec["evals"][-1]["eval_s"], "mesh_vertices": rec["evals"][-1]["mesh_vertices"],
+           "cpu_ref": PROTOCOL_CPU_REF}
+    ok = ([(c["from_step"], c["to_step"]) for c in chunks]
+          == [(0, PROTOCOL_RESUME_AT), (PROTOCOL_RESUME_AT, PROTOCOL_STEPS)]
+          and all(c["kernel1_launches"] == c["steps"] and c["losses_finite"] for c in chunks))
+    ref = PROTOCOL_CPU_REF
+    out["within_margins"] = bool(
+        result["held_out_psnr"] > ref["held_out_psnr"] - PROTOCOL_PSNR_MARGIN
+        and result["surface_sdf_err"] < PROTOCOL_GEOMETRY_FACTOR * ref["surface_sdf_err"]
+        and result["chamfer"] < PROTOCOL_GEOMETRY_FACTOR * ref["chamfer"])
+    again = csg_eval.run(csg_eval.parse_args(
+        [str(work / f"{validate_csg.run_tag(opts)}.msgpack"), "--views", str(opts.views),
+         "--workdir", str(work)]))
+    out["csg_eval_psnr"] = again["per_view_psnr"]
+    ok &= (again["steps"] == PROTOCOL_STEPS
+           and len(again["per_view_psnr"]) == len(result["per_view_psnr"])
+           and all(abs(a - b) <= PROTOCOL_REEVAL_ATOL_DB
+                   for a, b in zip(again["per_view_psnr"], result["per_view_psnr"])))
+    if not ok or not out["within_margins"]:
+        raise AssertionError(f"protocol_phase validate_csg: {out}")
+    return out
+
+
+def protocol_bucket(st, work: Path) -> dict:
+    """protocol_phase (b): bucket_ab's Testbed and eval, stepped here until
+    bucket 1 has trained PROTOCOL_BUCKET_AFTER steps (at most
+    PROTOCOL_BUCKET_CAP); kernel 1 once a step in every bucket."""
+    from neus2_tpu_torch.tools import bucket_ab, protocol
+
+    opts = bucket_ab.parse_args([str(PROTOCOL_BUCKET_FACTOR), str(PROTOCOL_BUCKET_CAP),
+                                 "--workdir", str(work)])
+    tb, eval_ds, eval_ids, shell = bucket_ab.build(opts)
+    hist = []
+    chunk = protocol.Chunk(tb, float("inf"), hist)
+    by_bucket = {}
+    while tb.training_step < PROTOCOL_BUCKET_CAP and not (
+            hist and tb.training_step >= hist[0][0] + PROTOCOL_BUCKET_AFTER):
+        bucket, before = tb.batch_bucket, st.segment_sum_rows.launches
+        chunk.step(tb.train)
+        n = by_bucket.setdefault(bucket, {"steps": 0, "launches": 0})
+        n["steps"] += 1
+        n["launches"] += st.segment_sum_rows.launches - before
+    rec = chunk.close()
+    out = {"record": rec, "by_bucket": by_bucket,
+           "result": bucket_ab.evaluate(tb, opts, eval_ds, eval_ids, shell, hist)}
+    if not (hist and hist[0][1] == 1 and {0, 1} <= set(by_bucket) and rec["losses_finite"]
+            and all(n["launches"] == n["steps"] for n in by_bucket.values())):
+        raise AssertionError(f"protocol_phase bucket_ab: {out}")
+    return out
+
+
+def protocol_phase(st) -> dict:
+    """The quality tools on the card at the main path's width: (a)
+    ``protocol_validate``, held to the TPU package's tool on the CPU at
+    the same protocol, and (b) ``protocol_bucket``, through the adaptive
+    bucket switch."""
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        for name, part in (("validate_csg", protocol_validate), ("bucket_ab", protocol_bucket)):
+            t0 = time.perf_counter()
+            out[name] = part(st, Path(d))
+            out[name]["wall_s"] = time.perf_counter() - t0
+    out["launches"] = {"validate_csg": [c["kernel1_launches"]
+                                        for c in out["validate_csg"]["chunks"]],
+                       "bucket_ab": {b: n["launches"]
+                                     for b, n in out["bucket_ab"]["by_bucket"].items()}}
+    print("protocol_phase " + json.dumps(out), flush=True)
+    return out
+
+
 def cublas_version() -> str:
     """The version of the cuBLAS this process loaded (``cublasGetProperty``)
     and its path; "not loaded" before the first product on the card."""
@@ -3295,6 +3413,8 @@ def main() -> int:
     lap("cascade")
     quality = quality_ab_phase(torch, st, cfg, hyper)
     lap("quality_ab")
+    protocols = protocol_phase(st)
+    lap("protocol")
     sdf = sdf_phase(torch, st)
     lap("sdf")
     image = image_phase(torch, st)
@@ -3328,6 +3448,7 @@ def main() -> int:
          "camera_launches": camera["launches"],
          "lens_launches": lens["launches_all"], "bf16_launches": bf16["launches"],
          "cascade_launches": cascade["launches"], "quality_ab_launches": quality["launches"],
+         "protocol_launches": protocols["launches"],
          "parallel_launches": [r["distinct_draws"]["launches"] for r in parallel["ranks"]],
          "sdf_launches": sdf["launches"], "sdf_shape": {
              k: sdf["kernel"][k] for k in ("updates_per_level", "max_abs_err", "kernel_ms",

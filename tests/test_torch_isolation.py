@@ -78,3 +78,20 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
         tt.init_train_state(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         tt.init_train_state(cfg, device="cuda:0")
+
+
+@pytest.mark.parametrize("tool,argv", [("validate_csg", []), ("csg_eval", ["snap.msgpack"]),
+                                       ("bucket_ab", []), ("dynamic_quality", [])])
+def test_quality_tools_default_to_the_card_and_refuse_cpu_fallback(monkeypatch, tmp_path,
+                                                                    tool, argv):
+    """Each quality tool's entry point runs on the card unless asked for the
+    CPU, and without CUDA it raises before it renders or writes anything."""
+    import importlib
+
+    mod = importlib.import_module(f"neus2_tpu_torch.tools.{tool}")
+    argv = [*argv, "--workdir", str(tmp_path / "work")]
+    assert mod.parse_args(argv).device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mod.main(argv)
+    assert not (tmp_path / "work").exists()
