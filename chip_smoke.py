@@ -65,18 +65,18 @@ runs them, with the launch counts set to 0 just before and read just after:
     once a step and the held-out PSNR beside the fp32 run's;
   * ``sdf_phase``: ``--mode sdf`` through the CLI at full width
     (``default_sdf_field``, batch 2^16, pool 2^21) on the CSG scene's mesh
-    for 2,000 steps: kernel 1 once a step (held first against its plain
+    for 1,000 steps: kernel 1 once a step (held first against its plain
     version at the mode's shape, and one step on the card against the
     CPU), the IoU, the sphere-traced render and the mesh;
   * ``image_phase``: ``--mode image`` through the CLI at
-    ``Image2DConfig``'s defaults on a 512^2 PNG for 1,000 steps: kernel 4
+    ``Image2DConfig``'s defaults on a 512^2 PNG for 500 steps: kernel 4
     once a level a step (held first against its plain version at each
     level's shape, and one step's table gradients on the card against the
     CPU), the PSNR;
   * ``parallel_phase``: data-parallel training (``neus2_tpu_torch/
     parallel``) on one rank a visible card through NCCL, at the same width
     with 4,096 rays a rank: equal draws against single-card steps, the
-    Testbed through ``enable_multichip`` for 200 steps with the error map
+    Testbed through ``enable_multichip`` for 100 steps with the error map
     on (kernel 1 once a step on every rank; device and NCCL ms a step,
     global rays/s), ZeRO-1 against replicated, and a ZeRO-1 snapshot
     loaded into a replicated Testbed.
@@ -104,8 +104,16 @@ runs them, with the launch counts set to 0 just before and read just after:
     the Chamfer distance of the 256^3 mesh), held to the TPU package's
     tool run on the CPU at the same protocol, and its snapshot evaluated
     again by csg_eval to the same PSNRs; and bucket_ab on the sphere
-    at factor 0.45 until the adaptive bucket 1 has trained 100 steps:
-    kernel 1 once a step in each chunk and in both buckets.
+    at factor 0.45 until the adaptive bucket 1 has trained 50 steps:
+    kernel 1 once a step in each chunk and in both buckets;
+  * ``tools_phase``: the last root tools' ports: occ_char's constructed
+    operating point (seed 0, 48 warm steps) held to the TPU package's
+    tool run on the CPU at the same arguments, bucket_cont branched from
+    protocol_phase's bucket_ab state into bucket 2 for 50 steps (kernel 1
+    once a step, the bucket fixed, every loss finite), and
+    validate_dynamic to its end (its learned delta's x negative, as the
+    motion's inverse is; kernel 1 once a canonical step and never in pose
+    refinement).
 
 Before the kernel phases, one ``provenance`` line names the machine
 (library versions, NVIDIA driver, SM count, visible cards, host CPU and
@@ -134,7 +142,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM, fp32 outside the tensor cores
 TRAIN_STEPS = 150
 WARMUP_STEPS = 20
-PROFILE_STEPS = 20
+PROFILE_STEPS = 10
 SCENE_RES = 256  # the synthetic scenes' image side
 TESTBED_STEPS = 200
 WIDE_ROW_CONFIGS = ("tpu_opt.json", "l4f8.json")  # wide_rows_phase, at their published widths
@@ -177,18 +185,22 @@ BF16_PSNR_MARGIN = 0.3  # dB, tests/test_train_e2e.py::test_bf16_compute_quality
 BF16_FIELD_LIMITS = {"outputs": 1e-3, "tables": 1e-2, "mlp": 2e-3}
 EVAL_SPP = 8
 MESH_RES = 256
-SDF_STEPS = 2000  # --mode sdf's default
+# --mode sdf at half its default 2,000 steps: at 2,000 the IoU read 0.9875
+# and the surface |sdf| 0.00077 against the bars 0.9 and 0.01 (PERF.md §6).
+SDF_STEPS = 1000
 SDF_MESH_RES = 128  # sdf_phase's mesh: csg_sdf on this lattice, marching cubes
-SDF_PROFILE_AT = 1000  # host window, then the traced window, from this step
+SDF_PROFILE_AT = 500  # host window, then the traced window, from this step
 SDF_IOU_BAR = 0.9  # tests/test_sdf_mode.py::test_fit_converges_iou
-IMAGE_STEPS = 1000  # --mode image's default
+# --mode image at half its default 1,000 steps: 46.80 dB at 1,000 against
+# the 26 dB bar (PERF.md §6).
+IMAGE_STEPS = 500
 IMAGE_RES = 512
-IMAGE_PROFILE_AT = 500
+IMAGE_PROFILE_AT = 250
 IMAGE_PSNR_BAR = 26.0  # tests/test_image_mode.py::test_image_fit_converges
 REFINE_ITERS = 5  # mesh_outputs_phase's refine_vertices
 PARALLEL_EQUAL_STEPS = 20  # parallel_phase (a) and (c)
-PARALLEL_STEPS = 200  # parallel_phase (b)
-PARALLEL_PROFILE_AT = 100
+PARALLEL_STEPS = 100  # parallel_phase (b): kernel 1 once a step on every rank
+PARALLEL_PROFILE_AT = 50
 PARALLEL_SNAPSHOT_STEPS = 10  # parallel_phase (d)
 # cascade_phase: tests/test_cascades.py's scene (its 64^2 images at the
 # other phases' SCENE_RES) and its bars.
@@ -253,9 +265,24 @@ PROTOCOL_CPU_REF = {"held_out_psnr": 25.80963134765625, "surface_sdf_err": 0.020
 PROTOCOL_PSNR_MARGIN = 1.0
 PROTOCOL_GEOMETRY_FACTOR = 1.5
 PROTOCOL_BUCKET_FACTOR = 0.45
-PROTOCOL_BUCKET_AFTER = 100
+PROTOCOL_BUCKET_AFTER = 50
 PROTOCOL_BUCKET_CAP = 1500
 PROTOCOL_REEVAL_ATOL_DB = 0.01
+PROTOCOL_BUCKET_SNAPSHOT = "protocol_bucket_ab.msgpack"  # (b)'s state, tools_phase's branch
+# tools_phase: the last root tools' ports.  occ_char at seed 0 and
+# TOOLS_OCC_WARM warm steps, its mean occ_len held within TOOLS_OCC_REL of
+# the TPU package's tools_occ_char.py run on the CPU at the same arguments
+# (TOOLS_OCC_CPU_REF; PERF.md §6: the TPU record puts seeds 2% and steps
+# 3% apart); bucket_cont in bucket TOOLS_BUCKET for TOOLS_BUCKET_EXTRA steps
+# from protocol_phase (b)'s snapshot; validate_dynamic to its end, its
+# learned delta's x with the sign of the motion's inverse, and kernel 1
+# once a canonical step, never in pose refinement.
+TOOLS_OCC_WARM = 48
+TOOLS_OCC_CPU_REF = 0.0427
+TOOLS_OCC_REL = 0.05
+TOOLS_BUCKET = 2
+TOOLS_BUCKET_EXTRA = 50
+TOOLS_DYNAMIC_LAUNCHES = {"0 canonical": 300, "1 refine": 0, "1 canonical": 40}
 # The batched layouts' index padding past each level's M updates, as the
 # JAX package pads them (round_up(M, 128) + 2 * chunk).
 STREAM_PAD = 4096
@@ -2805,7 +2832,8 @@ def protocol_validate(st, work: Path) -> dict:
 def protocol_bucket(st, work: Path) -> dict:
     """protocol_phase (b): bucket_ab's Testbed and eval, stepped here until
     bucket 1 has trained PROTOCOL_BUCKET_AFTER steps (at most
-    PROTOCOL_BUCKET_CAP); kernel 1 once a step in every bucket."""
+    PROTOCOL_BUCKET_CAP); kernel 1 once a step in every bucket.  Its state
+    is saved as PROTOCOL_BUCKET_SNAPSHOT in ``work``."""
     from neus2_tpu_torch.tools import bucket_ab, protocol
 
     opts = bucket_ab.parse_args([str(PROTOCOL_BUCKET_FACTOR), str(PROTOCOL_BUCKET_CAP),
@@ -2822,6 +2850,7 @@ def protocol_bucket(st, work: Path) -> dict:
         n["steps"] += 1
         n["launches"] += st.segment_sum_rows.launches - before
     rec = chunk.close()
+    tb.save_snapshot(work / PROTOCOL_BUCKET_SNAPSHOT)
     out = {"record": rec, "by_bucket": by_bucket,
            "result": bucket_ab.evaluate(tb, opts, eval_ds, eval_ids, shell, hist)}
     if not (hist and hist[0][1] == 1 and {0, 1} <= set(by_bucket) and rec["losses_finite"]
@@ -2830,22 +2859,80 @@ def protocol_bucket(st, work: Path) -> dict:
     return out
 
 
-def protocol_phase(st) -> dict:
-    """The quality tools on the card at the main path's width: (a)
-    ``protocol_validate``, held to the TPU package's tool on the CPU at
+def protocol_phase(st, work: Path) -> dict:
+    """The quality tools on the card at the main path's width, in ``work``:
+    (a) ``protocol_validate``, held to the TPU package's tool on the CPU at
     the same protocol, and (b) ``protocol_bucket``, through the adaptive
     bucket switch."""
     out = {}
-    with tempfile.TemporaryDirectory() as d:
-        for name, part in (("validate_csg", protocol_validate), ("bucket_ab", protocol_bucket)):
-            t0 = time.perf_counter()
-            out[name] = part(st, Path(d))
-            out[name]["wall_s"] = time.perf_counter() - t0
+    for name, part in (("validate_csg", protocol_validate), ("bucket_ab", protocol_bucket)):
+        t0 = time.perf_counter()
+        out[name] = part(st, work)
+        out[name]["wall_s"] = time.perf_counter() - t0
     out["launches"] = {"validate_csg": [c["kernel1_launches"]
                                         for c in out["validate_csg"]["chunks"]],
                        "bucket_ab": {b: n["launches"]
                                      for b, n in out["bucket_ab"]["by_bucket"].items()}}
     print("protocol_phase " + json.dumps(out), flush=True)
+    return out
+
+
+def tools_phase(st, work: Path) -> dict:
+    """The last root tools' ports on the card, in ``work`` after
+    ``protocol_phase``: occ_char's constructed operating point against the
+    TPU package's tool on the CPU; bucket_cont branched from protocol_phase
+    (b)'s snapshot into bucket TOOLS_BUCKET (kernel 1 once a step, the
+    bucket fixed, every loss finite); validate_dynamic to its end."""
+    from neus2_tpu_torch.tools import bucket_cont, occ_char, protocol, validate_dynamic
+
+    out, t0 = {}, time.perf_counter()
+    occ = occ_char.run(occ_char.parse_args(["0", str(TOOLS_OCC_WARM), "--workdir", str(work)]))
+    occ["cpu_ref"] = TOOLS_OCC_CPU_REF
+    occ["within"] = (abs(occ["occ_len_mean"] - TOOLS_OCC_CPU_REF)
+                     <= TOOLS_OCC_REL * TOOLS_OCC_CPU_REF)
+    occ["wall_s"] = time.perf_counter() - t0
+    out["occ_char"] = occ
+    if not (occ["within"] and occ["kernel1_launches"] == occ["train_steps"]):
+        raise AssertionError(f"tools_phase occ_char: {occ}")
+
+    t0 = time.perf_counter()
+    argv = [str(TOOLS_BUCKET), str(TOOLS_BUCKET_EXTRA), "--base",
+            str(work / PROTOCOL_BUCKET_SNAPSHOT), "--budget-s", "1e9", "--workdir", str(work)]
+    result = bucket_cont.run(bucket_cont.parse_args(argv))
+    rec = json.loads((work / f"bucket_cont_b{TOOLS_BUCKET}_record.json").read_text())
+    flag = protocol.flagship_config()
+    chunk = rec["chunks"][0]
+    out["bucket_cont"] = {"result": result, "base_step": rec["base_step"],
+                          "chunk": {k: chunk[k] for k in ("steps", "kernel1_launches",
+                                                          "losses_finite", "host_ms_per_step",
+                                                          "rates")},
+                          "buckets": sorted({r[2] for r in rec["occ_hist"]}),
+                          "wall_s": time.perf_counter() - t0}
+    ok = (result is not None and len(rec["chunks"]) == 1
+          and chunk["steps"] == chunk["kernel1_launches"] == TOOLS_BUCKET_EXTRA
+          and chunk["losses_finite"] and out["bucket_cont"]["buckets"] == [0]
+          and (result["rays"], result["samples"]) == (flag.n_rays << TOOLS_BUCKET,
+                                                      flag.samples_per_ray >> TOOLS_BUCKET)
+          and all(r[3] == r[3] and abs(r[3]) != float("inf") for r in rec["occ_hist"]))
+    if not ok:
+        raise AssertionError(f"tools_phase bucket_cont: {out['bucket_cont']}")
+
+    t0 = time.perf_counter()
+    result = validate_dynamic.run(validate_dynamic.parse_args(
+        ["--budget-s", "1e9", "--workdir", str(work)]))
+    rec = json.loads((work / "tpu_dyn_validate_record.json").read_text())
+    out["validate_dynamic"] = {"result": result, "launches": rec["chunks"][0]["launches"],
+                               "losses_finite": rec["chunks"][0]["losses_finite"],
+                               "wall_s": time.perf_counter() - t0}
+    delta = result["delta_transition"] if result else [float("nan")]
+    if not (all(d == d and abs(d) != float("inf") for d in delta) and delta[0] < 0
+            and out["validate_dynamic"]["launches"] == TOOLS_DYNAMIC_LAUNCHES
+            and out["validate_dynamic"]["losses_finite"]):
+        raise AssertionError(f"tools_phase validate_dynamic: {out['validate_dynamic']}")
+    out["launches"] = {"occ_char": occ["kernel1_launches"],
+                       "bucket_cont": chunk["kernel1_launches"],
+                       "validate_dynamic": out["validate_dynamic"]["launches"]}
+    print("tools_phase " + json.dumps(out), flush=True)
     return out
 
 
@@ -3299,7 +3386,7 @@ def parallel_phase(torch) -> dict:
           Adam state against 20 single-card ``train_step``s with those
           draws, bitwise in a world of one, else under the JAX parity rule
           (``trees_agree``);
-      (b) the Testbed through ``enable_multichip`` for 200 steps, each rank
+      (b) the Testbed through ``enable_multichip`` for 100 steps, each rank
           its own draws, the error map and its sharpness weighting on (the
           main path: kernel 1 once a step on every rank): the loss falls,
           the params and error map bitwise equal across the ranks, device
@@ -3339,6 +3426,7 @@ def parallel_phase(torch) -> dict:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -3413,8 +3501,11 @@ def main() -> int:
     lap("cascade")
     quality = quality_ab_phase(torch, st, cfg, hyper)
     lap("quality_ab")
-    protocols = protocol_phase(st)
-    lap("protocol")
+    with tempfile.TemporaryDirectory() as d:
+        protocols = protocol_phase(st, Path(d))
+        lap("protocol")
+        tools = tools_phase(st, Path(d))
+        lap("tools")
     sdf = sdf_phase(torch, st)
     lap("sdf")
     image = image_phase(torch, st)
@@ -3448,7 +3539,7 @@ def main() -> int:
          "camera_launches": camera["launches"],
          "lens_launches": lens["launches_all"], "bf16_launches": bf16["launches"],
          "cascade_launches": cascade["launches"], "quality_ab_launches": quality["launches"],
-         "protocol_launches": protocols["launches"],
+         "protocol_launches": protocols["launches"], "tools_launches": tools["launches"],
          "parallel_launches": [r["distinct_draws"]["launches"] for r in parallel["ranks"]],
          "sdf_launches": sdf["launches"], "sdf_shape": {
              k: sdf["kernel"][k] for k in ("updates_per_level", "max_abs_err", "kernel_ms",
@@ -3475,6 +3566,7 @@ def main() -> int:
                                              "bound_ms_per_step")}},
     ]
     print("phase_seconds " + json.dumps(seconds), flush=True)
+    print(f"script_s {time.perf_counter() - t_start:.1f}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

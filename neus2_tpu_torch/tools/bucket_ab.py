@@ -33,13 +33,10 @@ from pathlib import Path
 import numpy as np
 
 from neus2_tpu_torch.api.testbed import Hyperparams, Testbed
-from neus2_tpu_torch.data.synthetic import SCENES, make_sphere_dataset
+from neus2_tpu_torch.data.synthetic import SCENES
 from neus2_tpu_torch.engine.train import TrainConfig
 from neus2_tpu_torch.tools import protocol
 from neus2_tpu_torch.utils.device import resolve_device
-
-SPHERE_EVAL_IDS = [3, 9, 14, 17]  # of the 20-view ring
-
 
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -69,20 +66,11 @@ def build(opts, config: TrainConfig | None = None):
     config, and takes ``opts.factor`` either way."""
     config = dataclasses.replace(config or protocol.flagship_config(),
                                  adaptive_samples_factor=opts.factor)
+    train_ds, eval_ds, eval_ids = protocol.ab_scene(opts.scene, opts.res, opts.workdir)
     if opts.scene == "sphere":
-        train_ds = make_sphere_dataset(n_views=16, resolution=opts.res)
-        eval_ds = make_sphere_dataset(n_views=20, resolution=opts.res)
-        eval_ids = SPHERE_EVAL_IDS
-        d = np.random.default_rng(0).normal(size=(2048, 3))
-        d /= np.linalg.norm(d, axis=-1, keepdims=True)
-        shell = np.float32(0.5) + np.float32(0.25) * d.astype(np.float32)
+        shell = protocol.sphere_shell(2048, float32_first=True)
     else:
-        sdf, _ = SCENES[opts.scene]
-        eval_ds = protocol.scene_dataset(opts.scene, 26, opts.res, opts.workdir)
-        train_ds = eval_ds.subset(slice(0, 24))
-        eval_ids = [24, 25]
-        pts = np.random.default_rng(0).uniform(0.2, 0.8, size=(200000, 3)).astype(np.float32)
-        shell = pts[np.abs(sdf(pts)) < 0.01][:4096]
+        shell = protocol.csg_surface_points(SCENES[opts.scene][0])
         config = dataclasses.replace(config, mask_loss_weight=0.1)
     tb = Testbed(config=config, hyper=Hyperparams(first_frame_max_training_step=opts.target),
                  seed=opts.seed, device=opts.device)

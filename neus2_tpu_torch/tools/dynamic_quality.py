@@ -15,12 +15,12 @@ samples); ``--full`` trains the bench's flagship config (bf16 L14/F2,
 4096 x 64; ``--config`` picks the grid).  Resumable: a call stops after
 ``--budget-s`` seconds with a snapshot, and the frames done so far stay in
 ``<stem>_partial.json``.  Files in ``--workdir``:
-``dynamic_quality[_nopredict][_seed<n>][_<tag>].msgpack``, ``.json``,
+``dynamic_quality[_nopredict][_seed<n>][_b<B>][_<tag>].msgpack``, ``.json``,
 ``_partial.json``, ``_record.json``.
 
   python -m neus2_tpu_torch.tools.dynamic_quality [--full --views 48
       --res 256 --frame0-steps 1000 --refine-steps 250 --next-steps 450
-      --delta-lr 1e-2 --c2f] [--no-predict] [--motion-prior]
+      --delta-lr 1e-2 --c2f] [--no-predict] [--motion-prior] [--bucket B]
       [--workdir DIR] [--device cpu]
 """
 
@@ -60,6 +60,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="start each delta at the previous frame's")
     p.add_argument("--c2f", action="store_true", help="coarse-to-fine pose refinement")
     p.add_argument("--full", action="store_true", help="the flagship model scale")
+    p.add_argument("--bucket", type=int, choices=range(4), default=None,
+                   help="train in this adaptive bucket throughout (adaptive_batch off)")
     p.add_argument("--config", choices=sorted(FLAGSHIP_VARIANTS), default="parity",
                    help="the flagship grid under --full")
     p.add_argument("--seed", type=int, default=0, help="the Testbed's seed")
@@ -137,6 +139,7 @@ def run(opts, config: TrainConfig | None = None) -> dict | None:
     resolve_device(opts.device)  # no card: fail before rendering a view
     opts.workdir.mkdir(parents=True, exist_ok=True)
     suffix = ("_nopredict" if opts.no_predict else "") + (f"_seed{opts.seed}" if opts.seed else "")
+    suffix += "" if opts.bucket is None else f"_b{opts.bucket}"
     suffix += f"_{opts.tag}" if opts.tag else ""
     stem = opts.workdir / f"dynamic_quality{suffix}"
     snap, out_path = stem.with_suffix(".msgpack"), stem.with_suffix(".json")
@@ -145,7 +148,10 @@ def run(opts, config: TrainConfig | None = None) -> dict | None:
 
     frames_full = make_moving_sphere_frames(n_frames=opts.frames, translation_per_frame=SHIFT,
                                             n_views=opts.views + 1, resolution=opts.res)
-    tb = Testbed(config=config or make_config(opts), hyper=make_hyper(opts), seed=opts.seed,
+    config = config or make_config(opts)
+    if opts.bucket is not None:
+        config = protocol.fixed_bucket(config, opts.bucket)
+    tb = Testbed(config=config, hyper=make_hyper(opts), seed=opts.seed,
                  device=opts.device)
     tb.load_training_data_from_datasets([drop_last(ds) for ds in frames_full])
     results = protocol.read_json(partial, {"per_frame_psnr": [], "pose_err": [],

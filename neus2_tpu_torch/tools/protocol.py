@@ -18,11 +18,21 @@
   cannot be made fails the run.
 - ``Chunk``: a budgeted stretch of training that records what it cost (wall
   time, host ms and, on the card, traced device ms a step, kernel-1
-  launches) and every adaptive-bucket switch.
+  launches), every adaptive-bucket switch, the occ_len trace
+  (``tools_occlen_run.py`` :71-89: [step, occ_len EMA, bucket], then the
+  loss and the step's own occ_len, every 16 steps, read from the Testbed's
+  own 16-step host fetch)
+  and the rays/s by bucket over stable stretches.
+- ``fixed_bucket``: a config trained in one adaptive bucket throughout
+  (``tools_bucket_cont.py`` :52-57).
+- ``sphere_shell``, ``csg_surface_points``, ``ab_scene``: the sphere and
+  analytic-scene A/B protocols' points and datasets, as the root tools
+  draw them.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import multiprocessing
 import os
@@ -36,7 +46,13 @@ import numpy as np
 import torch
 
 from neus2_tpu_torch.data.dataset import NerfDataset
-from neus2_tpu_torch.data.synthetic import SCENES, csg_dataset, csg_poses, render_csg_view
+from neus2_tpu_torch.data.synthetic import (
+    SCENES,
+    csg_dataset,
+    csg_poses,
+    make_sphere_dataset,
+    render_csg_view,
+)
 from neus2_tpu_torch.engine.mesh import extract_mesh, largest_component
 from neus2_tpu_torch.engine.render import RenderConfig, render_image
 from neus2_tpu_torch.engine.train import TrainConfig
@@ -51,6 +67,9 @@ from neus2_tpu_torch.utils.variants import flagship_grid
 DEFAULT_WORKDIR = Path.home() / ".cache" / "neus2_quality"
 PROFILE_WINDOW = 16  # traced steps a device-time window
 PROFILE_EVERY = 1000  # one window in each stretch of as many steps
+TRACE_EVERY = 16  # the Testbed's host fetch: the occ_len trace's cadence
+RATE_STRETCH = 64  # steps in one bucket before its rays/s is read
+SPHERE_EVAL_IDS = [3, 9, 14, 17]  # the sphere protocols' held-out views of the 20-view ring
 
 
 def flagship_config(variant: str = "parity") -> TrainConfig:
@@ -64,6 +83,47 @@ def flagship_config(variant: str = "parity") -> TrainConfig:
         n_candidates=256,
         mask_loss_weight=0.1,
     )
+
+
+def fixed_bucket(config: TrainConfig, bucket: int) -> TrainConfig:
+    """``config`` trained in adaptive bucket ``bucket`` throughout: (rays
+    << bucket) x (samples >> bucket), the same samples a step, and the
+    adaptive switch off."""
+    return dataclasses.replace(config, n_rays=config.n_rays << bucket,
+                               samples_per_ray=config.samples_per_ray >> bucket,
+                               adaptive_batch=False)
+
+
+def sphere_shell(n: int, float32_first: bool) -> np.ndarray:
+    """(n, 3) float32 points on the synthetic sphere (centre 0.5, radius
+    0.25) along directions drawn from ``default_rng(0)``: computed in
+    float64 and cast (``tools_tpu_validate.py``, ``tools_compact_ab.py``),
+    or cast first and computed in float32 (``tools_bucket_ab.py``,
+    ``tools_bucket_cont.py``)."""
+    d = np.random.default_rng(0).normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    if float32_first:
+        return np.float32(0.5) + np.float32(0.25) * d.astype(np.float32)
+    return (0.5 + 0.25 * d).astype(np.float32)
+
+
+def csg_surface_points(sdf) -> np.ndarray:
+    """The A/B tools' surface points of an analytic scene: the first 4,096
+    of 200,000 uniform points in [0.2, 0.8]^3 with |sdf| < 0.01."""
+    pts = np.random.default_rng(0).uniform(0.2, 0.8, size=(200000, 3)).astype(np.float32)
+    return pts[np.abs(sdf(pts)) < 0.01][:4096]
+
+
+def ab_scene(scene: str, res: int, workdir: Path | None):
+    """(training views, eval dataset, held-out ids) of the A/B protocols:
+    the sphere on 16 views, held out on ``SPHERE_EVAL_IDS`` of a 20-view
+    ring; an analytic scene on the first 24 of 26 views, held out on the
+    last two."""
+    if scene == "sphere":
+        return (make_sphere_dataset(n_views=16, resolution=res),
+                make_sphere_dataset(n_views=20, resolution=res), SPHERE_EVAL_IDS)
+    eval_ds = scene_dataset(scene, 26, res, workdir)
+    return eval_ds.subset(slice(0, 24)), eval_ds, [24, 25]
 
 
 def gt_surface_points(sdf, n: int, seed: int = 0) -> np.ndarray:
@@ -215,7 +275,16 @@ class Chunk:
     what the stretch cost.  On the card, every ``PROFILE_EVERY`` steps a
     window of ``PROFILE_WINDOW`` steps is traced (device ms and launches a
     step, with the bucket it ran in).  ``history`` gets [step, bucket,
-    occ_len EMA] at each adaptive-bucket switch."""
+    occ_len EMA] at each adaptive-bucket switch.  Every ``TRACE_EVERY``
+    steps, right after the Testbed's host fetch, ``occ_hist`` gets [step,
+    occ_len EMA, bucket, loss, occ_len] (the EMA is the adaptive switch's,
+    0 with the switch off; the last field the fetched step's own occupied
+    chord; then the time frame on a dynamic scene, whose step counts from
+    each frame's start), and once a bucket has trained
+    ``RATE_STRETCH`` steps since the stretch began or the bucket last
+    changed, ``rates`` holds its trained rays/s over them (host clock)."""
+
+    clock = staticmethod(time.perf_counter)
 
     def __init__(self, tb, budget_s: float, history: list | None = None):
         self.tb, self.budget_s = tb, budget_s
@@ -226,17 +295,19 @@ class Chunk:
         self.losses_finite = True
         self.launches0 = segment_sum_rows.launches
         self.windows = []
+        self.occ_hist, self.rates = [], {}
         self._prof = None
         self._last_bucket = tb.batch_bucket
         self._sync()
-        self.t0 = time.perf_counter()
+        self.t0 = self.clock()
+        self._rate_from = (self.t0, tb.training_step, tb.batch_bucket)
 
     def _sync(self):
         if self.cuda:
             torch.cuda.synchronize(self.tb.device)
 
     def elapsed(self) -> float:
-        return time.perf_counter() - self.t0
+        return self.clock() - self.t0
 
     def running(self) -> bool:
         return self.elapsed() < self.budget_s
@@ -264,7 +335,23 @@ class Chunk:
             self._last_bucket = self.tb.batch_bucket
         loss = self.tb.loss_scalar
         self.losses_finite &= loss == loss and abs(loss) != float("inf")
+        if self.tb.training_step % TRACE_EVERY == 0:
+            self._trace()
         return out
+
+    def _trace(self):
+        tb = self.tb
+        step, bucket = tb.training_step, tb.batch_bucket
+        occ_len = float(tb.last_aux.mean_occ_len) if tb.last_aux is not None else 0.0
+        row = [step, round(float(tb._occ_len_ema or 0.0), 5), bucket, tb.loss_scalar,
+               round(occ_len, 5)]
+        self.occ_hist.append(row + [tb.current_training_time_frame] if tb.is_dynamic else row)
+        t0, step0, bucket0 = self._rate_from
+        if bucket != bucket0:
+            self._rate_from = (self.clock(), step, bucket)
+        elif step - step0 >= RATE_STRETCH:
+            rays = tb.config.n_rays << bucket
+            self.rates[str(bucket)] = round(rays * (step - step0) / (self.clock() - t0), 1)
 
     def _close_window(self):
         from torch.autograd import DeviceType
@@ -293,6 +380,8 @@ class Chunk:
             "kernel1_launches": segment_sum_rows.launches - self.launches0,
             "losses_finite": self.losses_finite,
             "device_windows": self.windows,
+            "rates": self.rates,
+            "occ_hist": self.occ_hist,
         }
 
 
@@ -323,9 +412,12 @@ def write_json(path: Path, obj) -> None:
 
 
 def record_chunk(path: Path, chunk: dict, **extra) -> dict:
-    """Append ``chunk`` to the run record at ``path`` ({"card", "chunks"}
-    and ``extra``); returns the record."""
+    """Append ``chunk`` to the run record at ``path`` ({"card", "chunks",
+    "occ_hist"} and ``extra``), its occ_len trace to the run's; returns the
+    record."""
     rec = read_json(path, {"card": card_name(), "chunks": []})
+    chunk = dict(chunk)
+    rec.setdefault("occ_hist", []).extend(chunk.pop("occ_hist", []))
     rec["chunks"].append(chunk)
     rec.update(extra)
     write_json(path, rec)

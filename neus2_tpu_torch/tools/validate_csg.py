@@ -14,7 +14,8 @@ Resumable in chunks: each call trains until the target, ``--budget-s``
 seconds or ``--chunk-steps`` steps, writes a snapshot, and evaluates once
 the target is reached; call again until it prints DONE.  The adaptive
 (rays, samples) bucket is host state that no snapshot holds, so a resumed
-chunk starts again in bucket 0 and re-votes.  Everything goes to
+chunk starts again in bucket 0 and re-votes; ``--bucket B`` trains in
+bucket B throughout (``protocol.fixed_bucket``).  Everything goes to
 ``--workdir``: ``<tag>.msgpack`` (snapshot), ``<tag>.json`` (the result,
 the TPU tool's keys), ``<tag>_record.json`` (each chunk's wall time, host
 and traced device ms a step, kernel-1 launches, bucket switches, and each
@@ -22,7 +23,7 @@ evaluation) and the dataset cache ``csg_ds_<scene>_<n>v_<res>.npz``.
 
   python -m neus2_tpu_torch.tools.validate_csg [target_steps] [--views 48]
       [--res 1024 --fp16-texels] [--error-map] [--config l4f8 --bf16]
-      [--oversample 1] [--scene dumbbell] [--budget-s S] [--workdir DIR]
+      [--oversample 1] [--scene dumbbell] [--bucket B] [--budget-s S] [--workdir DIR]
       [--device cpu]
 """
 
@@ -61,6 +62,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--bf16", action="store_true", help="bf16 compute (fp32 master params)")
     p.add_argument("--fp16-texels", action="store_true", help="half-precision image storage")
     p.add_argument("--oversample", type=int, default=2, help="hit-ray compaction factor")
+    p.add_argument("--bucket", type=int, choices=range(4), default=None,
+                   help="train in this adaptive bucket throughout (adaptive_batch off)")
     p.add_argument("--budget-s", type=float, default=330.0, help="seconds of training a call")
     p.add_argument("--chunk-steps", type=int, default=None, help="steps of training a call")
     p.add_argument("--seed", type=int, default=0, help="the Testbed's seed")
@@ -93,6 +96,7 @@ def run_tag(opts) -> str:
                        (opts.error_map, "emap")):
         tag += f"_{name}" if flag else ""
     tag += f"_os{opts.oversample}"
+    tag += "" if opts.bucket is None else f"_b{opts.bucket}"
     return tag + (f"_seed{opts.seed}" if opts.seed else "")
 
 
@@ -101,6 +105,8 @@ def run(opts, config: TrainConfig | None = None) -> dict | None:
     else None (a snapshot to resume from is on disk)."""
     resolve_device(opts.device)  # no card: fail before rendering a view
     config = config or csg_config(opts.config, opts.bf16, opts.error_map, opts.oversample)
+    if opts.bucket is not None:
+        config = protocol.fixed_bucket(config, opts.bucket)
     opts.workdir.mkdir(parents=True, exist_ok=True)
     tag = run_tag(opts)
     snap = opts.workdir / f"{tag}.msgpack"

@@ -81,7 +81,10 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
 
 
 @pytest.mark.parametrize("tool,argv", [("validate_csg", []), ("csg_eval", ["snap.msgpack"]),
-                                       ("bucket_ab", []), ("dynamic_quality", [])])
+                                       ("bucket_ab", []), ("dynamic_quality", []),
+                                       ("validate", []), ("validate_dynamic", []),
+                                       ("occ_char", []), ("occlen_run", []),
+                                       ("compact_ab", []), ("bucket_cont", ["2"])])
 def test_quality_tools_default_to_the_card_and_refuse_cpu_fallback(monkeypatch, tmp_path,
                                                                     tool, argv):
     """Each quality tool's entry point runs on the card unless asked for the
